@@ -1,0 +1,148 @@
+"""Block-tridiagonal Cholesky factor and solve of the ADMM normal matrix.
+
+Counterpart of `centroidal_mpc_tpu/ops/pallas_blockqp.py`.  Three CUDA
+kernels (`csrc/block_tridiag.cu`) replace its three `pl.pallas_call`s:
+
+  * `factor_batched` (kernel `tridiag_factor`) replaces `factor_batched`
+    (pallas_blockqp.py:203): per scenario, the blocked Cholesky of
+    M = P + sigma I + A' diag(rho) A over the N+1 knots, stored
+    pre-inverted;
+  * `forward_sweep` (kernel `tridiag_fwd`) and `backward_sweep` (kernel
+    `tridiag_bwd`) replace the two sweeps of `solve_batched`
+    (pallas_blockqp.py:280, :299); `solve_batched` runs both.
+
+Layout (batch-major, shared by the kernels and their plain versions):
+Cinv (B, N+1, V, V) = C_k^{-1}; Pfwd (B, N, V, V), slot k-1 = C_k^{-1} W_k;
+Pbwd (B, N, V, V), slot k-1 = C_{k-1}^{-T} W_k', with W_k =
+O_{k-1} C_{k-1}^{-T}.  C_k^{-T} is not stored: the backward sweep applies
+Cinv transposed.  The batch is not padded and V is used as is (<= 32).
+
+What bounds the kernels on an H100 and how they are laid out is written
+at the top of the CUDA source.  On a CPU tensor each wrapper runs its
+plain PyTorch version (a port of the JAX package's XLA twins
+`_block_tridiag_cholesky` / `_block_tridiag_solve`); on a CUDA tensor it
+launches its kernel or raises.  `launches` counts kernel launches.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from centroidal_mpc_tpu_torch.ops import cuda_lib
+
+launches = {"tridiag_factor": 0, "tridiag_fwd": 0, "tridiag_bwd": 0}
+
+
+class TridiagFactor(NamedTuple):
+    Cinv: torch.Tensor   # (B, N+1, V, V)  C_k^{-1}
+    Pfwd: torch.Tensor   # (B, N, V, V)    C_k^{-1} W_k        (slot k-1)
+    Pbwd: torch.Tensor   # (B, N, V, V)    C_{k-1}^{-T} W_k'   (slot k-1)
+
+
+def _matvec(m, v):
+    return (m @ v.unsqueeze(-1)).squeeze(-1)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def factor_plain(diag: torch.Tensor, off: torch.Tensor) -> TridiagFactor:
+    """Blocked Cholesky M = L L', sequential over knots.
+    diag (B, N+1, V, V), off (B, N, V, V) (off[:, k] couples knot k+1's
+    rows to knot k's columns)."""
+    n1, V = diag.shape[1], diag.shape[-1]
+    c = torch.linalg.cholesky(diag[:, 0])
+    chol, ws = [c], []
+    for k in range(1, n1):
+        # W = O C^{-T}
+        w = torch.linalg.solve_triangular(c, off[:, k - 1].mT,
+                                          upper=False).mT
+        c = torch.linalg.cholesky(diag[:, k] - w @ w.mT)
+        chol.append(c)
+        ws.append(w)
+    chol = torch.stack(chol, dim=1)
+    eye = torch.eye(V, dtype=diag.dtype, device=diag.device).expand_as(chol)
+    cinv = torch.linalg.solve_triangular(chol, eye, upper=False)
+    W = torch.stack(ws, dim=1) if ws else off.new_zeros(off.shape)
+    return TridiagFactor(Cinv=cinv, Pfwd=cinv[:, 1:] @ W,
+                         Pbwd=cinv[:, :-1].mT @ W.mT)
+
+
+def forward_sweep_plain(fac: TridiagFactor, b: torch.Tensor) -> torch.Tensor:
+    """v_0 = Cinv_0 b_0, v_k = Cinv_k b_k - Pfwd[k-1] v_{k-1}."""
+    c = _matvec(fac.Cinv, b)
+    vs = [c[:, 0]]
+    for k in range(1, b.shape[1]):
+        vs.append(c[:, k] - _matvec(fac.Pfwd[:, k - 1], vs[-1]))
+    return torch.stack(vs, dim=1)
+
+
+def backward_sweep_plain(fac: TridiagFactor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """w_N = Cinv_N' v_N, w_k = Cinv_k' v_k - Pbwd[k] w_{k+1}."""
+    d = _matvec(fac.Cinv.mT, v)
+    n = v.shape[1] - 1
+    ws = [d[:, n]]
+    for k in range(n - 1, -1, -1):
+        ws.append(d[:, k] - _matvec(fac.Pbwd[:, k], ws[-1]))
+    return torch.stack(ws[::-1], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def factor_batched(diag: torch.Tensor, off: torch.Tensor) -> TridiagFactor:
+    """Pre-inverted blocked Cholesky factor of every scenario's M."""
+    if diag.device.type == "cpu":
+        return factor_plain(diag, off)
+    B, n1, V = diag.shape[0], diag.shape[1], diag.shape[-1]
+    sfx = cuda_lib.check_args("tridiag_factor", (diag, (B, n1, V, V)),
+                              (off, (B, n1 - 1, V, V)))
+    if V > 32:
+        raise ValueError(f"tridiag_factor: V={V} > 32")
+    cinv = torch.empty_like(diag)
+    pfwd = torch.empty_like(off)
+    pbwd = torch.empty_like(off)
+    cuda_lib.launch("cmpc_tridiag_factor", sfx, diag.device, diag, off,
+                    cinv, pfwd, pbwd, B, n1, V)
+    launches["tridiag_factor"] += 1
+    return TridiagFactor(Cinv=cinv, Pfwd=pfwd, Pbwd=pbwd)
+
+
+def _sweep(kernel: str, mats: tuple, rhs: torch.Tensor) -> torch.Tensor:
+    cinv, coup = mats
+    B, n1, V = rhs.shape
+    sfx = cuda_lib.check_args(kernel, (rhs, (B, n1, V)),
+                              (cinv, (B, n1, V, V)),
+                              (coup, (B, n1 - 1, V, V)))
+    if V > 32:
+        raise ValueError(f"{kernel}: V={V} > 32")
+    out = torch.empty_like(rhs)
+    cuda_lib.launch("cmpc_" + kernel, sfx, rhs.device, cinv, coup, rhs,
+                    out, B, n1, V)
+    launches[kernel] += 1
+    return out
+
+
+def forward_sweep(fac: TridiagFactor, b: torch.Tensor) -> torch.Tensor:
+    """Forward sweep of M w = b; b (B, N+1, V)."""
+    if b.device.type == "cpu":
+        return forward_sweep_plain(fac, b)
+    return _sweep("tridiag_fwd", (fac.Cinv, fac.Pfwd), b)
+
+
+def backward_sweep(fac: TridiagFactor, v: torch.Tensor) -> torch.Tensor:
+    """Backward sweep of M w = b from the forward sweep's output v."""
+    if v.device.type == "cpu":
+        return backward_sweep_plain(fac, v)
+    return _sweep("tridiag_bwd", (fac.Cinv, fac.Pbwd), v)
+
+
+def solve_batched(fac: TridiagFactor, b: torch.Tensor) -> torch.Tensor:
+    """Solve M w = b for every scenario; b, w (B, N+1, V)."""
+    return backward_sweep(fac, forward_sweep(fac, b))

@@ -1,0 +1,60 @@
+"""Batched truncated-DARE LQR gains.
+
+Counterpart of `centroidal_mpc_tpu/ops/pallas_lqr.py`.  The CUDA kernel
+`dare_lqr` (`csrc/dare_lqr.cu`) replaces its `pl.pallas_call`
+(pallas_lqr.py:114, `_dare_kernel`): for S independent (A_s, B_s) pairs
+with shared Q and R, n_iter steps of P <- Q + A'PA - A'PB H^-1 B'PA,
+H = R + B'PB, then K = -H^-1 B'PA, with H^-1 from a Cholesky factor.
+
+The plain PyTorch version below runs the same math (Cholesky inverse, not
+the JAX package's f64 Newton-Schulz chain).  On a CPU tensor the wrapper
+runs it; on a CUDA tensor it launches the kernel or raises.  `launches`
+counts kernel launches.  What bounds the kernel on an H100 and how it is
+laid out is written at the top of the CUDA source.
+"""
+from __future__ import annotations
+
+import torch
+
+from centroidal_mpc_tpu_torch.ops import cuda_lib
+
+launches = {"dare_lqr": 0}
+
+MAX_DIM = 16   # nx, nu bound of the kernel's shared-memory tiles
+
+
+def lqr_gain_plain(Q: torch.Tensor, R: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, n_iter: int = 2) -> torch.Tensor:
+    """Q (nx, nx), R (nu, nu), A (S, nx, nx), B (S, nx, nu) -> K (S, nu, nx)."""
+    nu = B.shape[-1]
+    eye = torch.eye(nu, dtype=A.dtype, device=A.device)
+    P = Q.expand(A.shape)
+    for it in range(n_iter + 1):
+        BtP = B.mT @ P
+        H = R + BtP @ B
+        linv = torch.linalg.solve_triangular(torch.linalg.cholesky(H),
+                                             eye.expand_as(H), upper=False)
+        hinv = linv.mT @ linv
+        BtPA = BtP @ A
+        if it == n_iter:   # K uses H and B'PA of the n_iter-step P
+            break
+        P = (Q + (A.mT @ P) @ A) - (BtPA.mT @ hinv) @ BtPA
+    return -(hinv @ BtPA)
+
+
+def lqr_gain_batched(Q: torch.Tensor, R: torch.Tensor, A: torch.Tensor,
+                     B: torch.Tensor, n_iter: int = 2) -> torch.Tensor:
+    """K gains for S independent (A, B) pairs in one kernel launch."""
+    if A.device.type == "cpu":
+        return lqr_gain_plain(Q, R, A, B, n_iter)
+    S, nx, nu = A.shape[0], A.shape[1], B.shape[-1]
+    sfx = cuda_lib.check_args("dare_lqr", (A, (S, nx, nx)), (B, (S, nx, nu)),
+                              (Q, (nx, nx)), (R, (nu, nu)))
+    if max(nx, nu) > MAX_DIM or n_iter < 0:
+        raise ValueError(f"dare_lqr: needs nx, nu <= {MAX_DIM} and "
+                         f"n_iter >= 0 (nx={nx}, nu={nu}, n_iter={n_iter})")
+    K = torch.empty((S, nu, nx), dtype=A.dtype, device=A.device)
+    cuda_lib.launch("cmpc_dare_lqr", sfx, A.device, Q, R, A, B, K, S, nx,
+                    nu, n_iter)
+    launches["dare_lqr"] += 1
+    return K

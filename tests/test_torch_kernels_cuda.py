@@ -1,0 +1,87 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card.  These need an NVIDIA GPU with nvcc and skip without one; on the
+card run them (this file imports no JAX, so skip the JAX test conftest):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from centroidal_mpc_tpu_torch.ops import block_tridiag as bt
+from centroidal_mpc_tpu_torch.ops import lqr_kernel
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+# f32 kernels vs f32 plain versions: a few ulp times cond ~10 and V;
+# f64: round-off
+TOL = {torch.float32: 1e-4, torch.float64: 1e-11}
+
+
+def _system(b, n, v, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    off = 0.2 * rng.standard_normal((b, n, v, v))
+    r = rng.standard_normal((b, n + 1, v, v))
+    diag = r @ np.swapaxes(r, -1, -2) / v + 3.0 * np.eye(v)
+    rhs = rng.standard_normal((b, n + 1, v))
+    return [torch.as_tensor(a, dtype=dtype, device=device)
+            for a in (diag, off, rhs)]
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,n,v", [(5, 7, 22), (3, 1, 13), (2, 0, 9)])
+def test_tridiag_kernels_match_plain(cuda, dtype, b, n, v):
+    diag, off, rhs = _system(b, n, v, dtype, cuda)
+    counts = dict(bt.launches)
+    fac = bt.factor_batched(diag, off)
+    ref = bt.factor_plain(diag, off)
+    for x, y in zip(fac, ref):
+        if y.numel():
+            assert _rel(x, y) < TOL[dtype]
+    v_k = bt.forward_sweep(fac, rhs)
+    assert _rel(v_k, bt.forward_sweep_plain(fac, rhs)) < TOL[dtype]
+    w_k = bt.backward_sweep(fac, v_k)
+    assert _rel(w_k, bt.backward_sweep_plain(fac, v_k)) < TOL[dtype]
+    torch.cuda.synchronize()
+    assert bt.launches["tridiag_factor"] == counts["tridiag_factor"] + 1
+    assert bt.launches["tridiag_fwd"] == counts["tridiag_fwd"] + 1
+    assert bt.launches["tridiag_bwd"] == counts["tridiag_bwd"] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dare_kernel_matches_plain(cuda, dtype):
+    rng = np.random.default_rng(1)
+    S, nx, nu = 37, 9, 12
+    A = np.eye(nx) + 0.05 * rng.standard_normal((S, nx, nx))
+    B = 0.05 * rng.standard_normal((S, nx, nu))
+    Q = np.diag(rng.uniform(1e3, 1e4, nx))
+    R = np.diag(rng.uniform(1e1, 1e3, nu))
+    t = [torch.as_tensor(a, dtype=dtype, device=cuda) for a in (Q, R, A, B)]
+    for n_iter in (0, 2):
+        K = lqr_kernel.lqr_gain_batched(*t, n_iter=n_iter)
+        assert _rel(K, lqr_kernel.lqr_gain_plain(*t, n_iter)) < TOL[dtype]
+
+
+def test_wrappers_raise_on_what_they_do_not_take(cuda):
+    diag, off, rhs = _system(2, 3, 9, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        bt.factor_batched(diag.half(), off.half())
+    with pytest.raises(ValueError):
+        bt.factor_batched(diag, off.cpu())
+    with pytest.raises(ValueError):
+        bt.factor_batched(diag.mT, off)      # not contiguous
+    fac = bt.factor_batched(diag, off)
+    with pytest.raises(ValueError):
+        bt.forward_sweep(fac, rhs[:, :-1])   # wrong knot count
