@@ -74,24 +74,29 @@ def build_problem(preset: ProblemPreset, stochastic: bool = False,
                   U_warm: Optional[torch.Tensor] = None,
                   dtype: torch.dtype = torch.float32,
                   qp: Optional[QPSettings] = None,
-                  terrain=None, device="cpu") -> Problem:
+                  terrain=None, device="cuda") -> Problem:
     """Expand a preset into a ready-to-solve Problem on `device`.
 
     X_warm (N+1, nx) is the tracking target and boundary states (default:
     the analytic centroid warm start); U_warm (N, nu) the control warm
-    start (default: the weight-distribution heuristic)."""
+    start (default: the weight-distribution heuristic).  The problem goes
+    to the card unless the caller passes device="cpu"; without a card
+    that default raises."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_problem: no CUDA device; pass device='cpu' "
+                           "to build the problem on the CPU")
     if stochastic:
         raise NotImplementedError(
             "stochastic problems are not ported yet")
     plan = build_contact_plan(preset.robot, preset.gait, preset.dt,
-                              dtype=dtype, terrain=terrain)
+                              dtype=dtype, device="cpu", terrain=terrain)
     model = CentroidalModel.from_spec(
         preset.robot, preset.dt,
         Q=np.diag(preset.lqr_Q_diag),
         R=np.diag(preset.lqr_R_diag),
         cov_w=np.diag(preset.cov_w_diag),
         cov_eta=preset.dt * np.diag(preset.cov_eta_diag),
-        dtype=dtype)
+        dtype=dtype, device="cpu")
     if X_warm is None:
         X_warm = centroid_state_warm_start(preset.robot, plan.schedule, dtype)
     if U_warm is None:
@@ -109,7 +114,7 @@ def build_problem(preset: ProblemPreset, stochastic: bool = False,
         X_track=X_warm,
         Wx=t(np.diag(preset.state_cost_diag)),
         Wu=t(np.diag(preset.control_cost_diag)),
-        pyramid=friction_pyramid_matrix(preset.mu, dtype),
+        pyramid=friction_pyramid_matrix(preset.mu, dtype, device="cpu"),
         xi=t(preset.chance_quantile()),
         cop_range=t([[fhd[0], fhd[1]], [fhd[2], fhd[3]]]),
         track_state=True,

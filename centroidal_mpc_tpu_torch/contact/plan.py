@@ -81,7 +81,7 @@ def _foot_indices(robot: RobotSpec, swing_names: Sequence[str]) -> List[int]:
 def build_contact_plan(robot: RobotSpec, gait: GaitSpec, dt: float,
                        initial_foot_positions: Optional[np.ndarray] = None,
                        dtype: torch.dtype = torch.float32,
-                       device="cpu", terrain=None) -> ContactPlan:
+                       *, device, terrain=None) -> ContactPlan:
     """Expand a gait into phases and a dense contact schedule (same
     semantics as the JAX `build_contact_plan`: each phase lasts
     support_knots or step_knots, the named feet swing, and swung feet land

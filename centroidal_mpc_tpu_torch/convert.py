@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 
-def to_tensor(a, device="cpu", dtype: torch.dtype = torch.float64):
+def to_tensor(a, device, dtype: torch.dtype = torch.float64):
     """A numpy array as a tensor: floating arrays take `dtype`, integer and
     boolean arrays keep their kind (int32 stays int32)."""
     a = np.asarray(a)
@@ -24,7 +24,7 @@ def to_tensor(a, device="cpu", dtype: torch.dtype = torch.float64):
     return torch.tensor(a, device=device)
 
 
-def from_numpy(cls, fields: Mapping[str, Any], device="cpu",
+def from_numpy(cls, fields: Mapping[str, Any], device,
                dtype: torch.dtype = torch.float64):
     """Instantiate a dataclass or NamedTuple of the port (ContactSchedule,
     CentroidalModel, OcpConfig, TrajectoryData, BlockQP, WVars, ZGroups,

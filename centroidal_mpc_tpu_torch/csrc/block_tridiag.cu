@@ -18,21 +18,56 @@
 // C^{-T} is not stored: the backward sweep reads Cinv transposed from
 // shared memory.  All arrays are batch-major, row-major and contiguous;
 // the plain PyTorch versions in ops/block_tridiag.py use the same layout.
+// The batch is not padded.  Square roots and divisions are IEEE-rounded
+// (no rsqrt approximation, no fast-math).
 //
-// What bounds these kernels on an H100: each is a dependency chain over
-// the knots per scenario, on blocks far too small for tensor cores.  The
-// factor runs ~4 small dense steps per knot (two V^3 products, a Cholesky,
-// a triangular inverse, two more products); the sweeps read 2 V x V
-// matrices per knot (about 25 MB per sweep at B=128, N=50, V=22 in f32)
-// and are bound by memory latency along the chain.  Design: one thread
-// block per scenario for the factor (the V x V work of a knot spread over
-// the block, the carried C_{k-1}^{-1} in shared memory), and one warp per
-// scenario for each sweep (lane i owns row i, V <= 32; the knot's two
-// matrices are staged through shared memory with coalesced loads).  The
-// batch is not padded.  Square roots and divisions are IEEE-rounded (no
-// rsqrt approximation).
+// The factor.  It runs ~4 small dense steps per knot (two V^3 products, a
+// Cholesky, a triangular inverse, two more products) along the chain of
+// knots: one thread block per scenario, the V x V work of a knot spread
+// over the block, the carried C_{k-1}^{-1} in shared memory.  It is bound
+// by that chain, far from its 15.0 us byte bound at B=128, N=50, V=22.
+//
+// The sweeps.  Each must read per knot the lower triangle of a Cinv block
+// and a dense coupling block: 20.1 MB per sweep at B=128, N=50, V=22 in
+// f32, 6.0 us at 3.35 TB/s, against 9.6 MFLOP, so bytes bound them (the
+// kernels read the Cinv blocks whole, 26.2 MB).  Half of each knot's work
+// does not depend on the carried vector: c_k = Cinv_k b_k (forward) or
+// d_k = Cinv_k' v_k (backward).  Only y_k = c_k - P_k y_prev is a chain.
+// One thread block
+// per scenario, six warps with fixed roles, over a ring of S shared-memory
+// stages of four knots each (their Cinv blocks, coupling blocks and c):
+//   - warp 0, the producer, keeps the ring up to S stages ahead of the
+//     chain.  A stage's Cinv blocks are one contiguous run in device
+//     memory, and so are its coupling blocks.  When V*V*sizeof(T) is a
+//     multiple of 16 (V even) one thread copies each run with a TMA bulk
+//     copy (cp.async.bulk) that completes on the stage's mbarrier (the
+//     wrappers require Cinv and the coupling blocks 16-B aligned then);
+//     else the warp copies them element by element with cp.async;
+//   - warps 2-5 compute c for knot q = 0..3 of every stage, in parallel
+//     and off the chain, with the rhs read from device memory one stage
+//     ahead;
+//   - warp 1 runs the chain: lane i owns row i (V <= 32).  y_prev is
+//     broadcast through a double-buffered 32-entry vector in shared
+//     memory, read with 16-byte loads; the P row and c of the next knot
+//     load into a second register set while this knot's multiply-adds
+//     run; the next stage's barriers are tested one stage ahead.
+// Three mbarriers per stage order the roles: full (the copies landed),
+// cdone (the four c are written) and empty (the chain and all c-warps are
+// done with it).  Every waiter sees every phase of a barrier in order.
+// The ring wraps whenever the horizon has more than 4 S knots (S = 8 at
+// V=22 in f32 with one block per SM; it shrinks when blocks share an SM).
+// V=22, the main path's (solo12, talos), is compiled with V known; other V
+// (bolt's 16 among them) run one generic instantiation, 32 registers a
+// row, with bounds checks.  What limits the sweeps now: the chain's
+// latency per knot on one warp (the broadcast store and its dependent
+// shared loads, V multiply-adds in 8 accumulators), which no other work of
+// the scenario can shorten; at B=128 the HBM share of one SM comes close
+// to it (PERF.md has the times).
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cstdint>
 
 namespace {
 
@@ -138,56 +173,411 @@ __global__ void tridiag_factor_kernel(const T* __restrict__ diag,
   }
 }
 
-// One sweep, one warp per scenario.  REVERSE=false is the forward sweep
-// (Cinv applied as is, coupling P[k-1] on the previous knot); REVERSE=true
-// the backward sweep (Cinv applied transposed, coupling P[k] on the next).
-template <typename T, bool REVERSE>
-__global__ void tridiag_sweep_kernel(const T* __restrict__ cinv,
-                                     const T* __restrict__ coup,
-                                     const T* __restrict__ rhs,
-                                     T* __restrict__ out, int n1, int V) {
-  extern __shared__ unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int ld = V + 1;
-  T* M = sm;              // Cinv_k
-  T* P = M + V * ld;      // coupling block
-  T* r = P + V * ld;      // rhs_k
-  T* prev = r + V;        // carried solution of the neighbour knot
-  const int lane = threadIdx.x;
+// ---------------------------------------------------------------------------
+// Solve sweeps (design in the note at the top of the file).
+
+constexpr int kGroup = 4;           // knots per stage
+constexpr int kSweepCWarps = kGroup;  // one c-warp per knot of a stage
+constexpr int kSweepThreads = 32 * (2 + kSweepCWarps);
+constexpr int kMaxStages = 8;
+constexpr size_t kRingBytes = 128 * 1024;  // ring bytes per SM
+constexpr size_t kBarrierBytes = 3 * kMaxStages * sizeof(uint64_t);
+// scratch elements: the chain's y, double-buffered, and each c-warp's rhs
+constexpr int kScratch = 2 * 32 + kSweepCWarps * 32;
+
+// Shape of one launch.  A stage holds kGroup knots, in elements of T, each
+// part starting on a 16-B boundary: their Cinv blocks [blk], their
+// coupling blocks [blk] (each run as contiguous as in device memory), and
+// c [kGroup][vpad].
+struct SweepShape {
+  int n1, V;
+  int stages;  // S
+  int blk;     // kGroup*V*V rounded up to 16 B
+  int vpad;    // V rounded up to 16 B
+  int bulk;    // blocks go by TMA bulk copy (else by cp.async)
+};
+
+// 16 bytes of T.
+template <typename T>
+struct alignas(16) Chunk {
+  T v[16 / sizeof(T)];
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Shared-memory loads and stores by 32-bit shared address, in program
+// order with every other memory access.
+__device__ __forceinline__ void st_shared(uint32_t a, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(a), "f"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t a, double v) {
+  asm volatile("st.shared.f64 [%0], %1;" ::"r"(a), "d"(v) : "memory");
+}
+__device__ __forceinline__ void ld_shared(float& v, uint32_t a) {
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+}
+__device__ __forceinline__ void ld_shared(double& v, uint32_t a) {
+  asm volatile("ld.shared.f64 %0, [%1];" : "=d"(v) : "r"(a) : "memory");
+}
+__device__ __forceinline__ void ld_shared2(float& x, float& y, uint32_t a) {
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(x), "=f"(y)
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void ld_shared2(double& x, double& y,
+                                           uint32_t a) {
+  asm volatile("ld.shared.v2.f64 {%0, %1}, [%2];"
+               : "=d"(x), "=d"(y)
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void ld_chunk(Chunk<float>& c, uint32_t a) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(c.v[0]), "=f"(c.v[1]), "=f"(c.v[2]), "=f"(c.v[3])
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void ld_chunk(Chunk<double>& c, uint32_t a) {
+  ld_shared2(c.v[0], c.v[1], a);
+}
+
+// out[...] = v where lane < V, without a branch around the store.
+__device__ __forceinline__ void st_global_if(bool p, float* a, float v) {
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t"
+      "@q st.global.f32 [%0], %1;\n\t}" ::"l"(a),
+      "f"(v), "r"(static_cast<unsigned>(p))
+      : "memory");
+}
+__device__ __forceinline__ void st_global_if(bool p, double* a, double v) {
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t"
+      "@q st.global.f64 [%0], %1;\n\t}" ::"l"(a),
+      "d"(v), "r"(static_cast<unsigned>(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Whether the phase of parity `parity` of `bar` has completed (no wait).
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, unsigned parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// Wait until the phase of parity `parity` of `bar` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA 1-D bulk copy global -> shared; its bytes complete on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+
+// One arrival on `bar` once this thread's earlier cp.async copies landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Row of a V x V block at shared address `a` into registers, 0 past V:
+// two elements a load when V is known and even (rows are then 2-element
+// aligned).
+template <typename T, int VB, int VX>
+__device__ __forceinline__ void load_row(T (&d)[VB], uint32_t a, int V) {
+#pragma unroll
+  for (int j = 0; j < VB; j += 2) {
+    if constexpr (VX > 0 && VX % 2 == 0) {
+      if (j < VX)
+        ld_shared2(d[j], d[j + 1], a + j * sizeof(T));
+      else
+        d[j] = d[j + 1] = T(0);
+    } else {
+      d[j] = d[j + 1] = T(0);
+      if (j < V) ld_shared(d[j], a + j * sizeof(T));
+      if (j + 1 < V) ld_shared(d[j + 1], a + (j + 1) * sizeof(T));
+    }
+  }
+}
+
+// One sweep of one scenario per thread block.  REVERSE=false is the
+// forward sweep (Cinv applied as is, coupling P[k-1] on the previous
+// knot); REVERSE=true the backward sweep (Cinv applied transposed,
+// coupling P[k] on the next).  Step s runs knot k = s (forward) or
+// n1-1-s (backward); group g holds steps 4g..4g+3 in stage g mod S, and
+// the blocks of its q-th step sit at position q (forward) or gq-1-q
+// (backward) of the stage, gq being the group's length.  VB >= V is the
+// register width of a row, a multiple of 4; VX is V when it is known at
+// compile time (the main path's V=22: no per-element bounds checks), else
+// 0.
+template <typename T, bool REVERSE, int VB, int VX>
+__device__ __forceinline__ void sweep_body(const T* __restrict__ cinv,
+                                           const T* __restrict__ coup,
+                                           const T* __restrict__ rhs,
+                                           T* __restrict__ out,
+                                           const SweepShape sh) {
+  constexpr int kPer = 16 / sizeof(T);
+  constexpr int W = sizeof(T);
+  extern __shared__ __align__(16) unsigned char sweep_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(sweep_smem);
+  uint64_t* cdone = full + kMaxStages;
+  uint64_t* empty = cdone + kMaxStages;
+  T* scratch = reinterpret_cast<T*>(sweep_smem + kBarrierBytes);
+  T* ring = scratch + kScratch;
+  const int n1 = sh.n1, V = VX ? VX : sh.V, S = sh.stages;
+  const int blk = sh.blk, vpad = sh.vpad;
+  const int len = 2 * blk + kGroup * vpad;  // stage length
+  const int ngroups = (n1 + kGroup - 1) / kGroup;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = lane < V ? lane : 0;  // idle lanes read row 0
   const int VV = V * V;
   const size_t b = blockIdx.x;
   const T* Cb = cinv + b * n1 * VV;
   const T* Pb = coup + b * (n1 - 1) * VV;
   const T* rb = rhs + b * n1 * V;
-  T* ob = out + b * n1 * V;
 
-  for (int s = 0; s < n1; ++s) {
-    const int k = REVERSE ? n1 - 1 - s : s;
-    const int pk = REVERSE ? k : k - 1;   // coupling slot, valid if s > 0
-    for (int e = lane; e < VV; e += 32) {
-      const int i = e / V, j = e - i * V;
-      M[i * ld + j] = Cb[(size_t)k * VV + e];
-      if (s > 0) P[i * ld + j] = Pb[(size_t)pk * VV + e];
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], sh.bulk ? 1 : 32);
+      mbar_init(&cdone[i], 32 * kSweepCWarps);
+      mbar_init(&empty[i], 32 + 32 * kSweepCWarps);  // chain and c-warps
     }
-    if (lane < V) r[lane] = rb[(size_t)k * V + lane];
-    __syncwarp();
-    T y = T(0);
-    if (lane < V) {
-      T c = T(0);
-      for (int l = 0; l < V; ++l)
-        c += (REVERSE ? M[l * ld + lane] : M[lane * ld + l]) * r[l];
-      T q = T(0);
-      if (s > 0)
-        for (int l = 0; l < V; ++l) q += P[lane * ld + l] * prev[l];
-      y = c - q;
-    }
-    __syncwarp();
-    if (lane < V) {
-      prev[lane] = y;
-      ob[(size_t)k * V + lane] = y;
-    }
-    __syncwarp();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
+
+  if (warp == 0) {  // producer: one thread with TMA, the warp without
+    if (sh.bulk && lane != 0) return;
+    int st = 0;
+    unsigned par = 0;
+    for (int g = 0; g < ngroups; ++g) {
+      if (g >= S) mbar_wait(&empty[st], par ^ 1);
+      const int g0 = g * kGroup, gq = min(kGroup, n1 - g0);
+      const int clo = REVERSE ? n1 - g0 - gq : g0;  // first Cinv block
+      const int pn = g == 0 ? gq - 1 : gq;           // coupling blocks
+      const int plo = REVERSE ? clo : (g == 0 ? 0 : g0 - 1);
+      T* dst_c = ring + (size_t)st * len;
+      T* dst_p = dst_c + blk + ((!REVERSE && g == 0) ? VV : 0);
+      const T* src_c = Cb + (size_t)clo * VV;
+      const T* src_p = Pb + (size_t)plo * VV;
+      if (sh.bulk) {
+        const unsigned cbytes = gq * VV * W, pbytes = pn * VV * W;
+        mbar_arrive_expect_tx(&full[st], cbytes + pbytes);
+        bulk_copy(dst_c, src_c, cbytes, &full[st]);
+        if (pn > 0) bulk_copy(dst_p, src_p, pbytes, &full[st]);
+      } else {
+        for (int e = lane; e < gq * VV; e += 32)
+          cp_async_elem(dst_c + e, src_c + e);
+        for (int e = lane; e < pn * VV; e += 32)
+          cp_async_elem(dst_p + e, src_p + e);
+        cp_async_arrive(&full[st]);
+      }
+      if (++st == S) {
+        st = 0;
+        par ^= 1;
+      }
+    }
+  } else if (warp == 1) {  // the chain y_k = c_k - P y_prev
+    const uint32_t ybuf = smem_addr(scratch);  // y of the last two steps
+    const uint32_t ring_a = smem_addr(ring);
+    T* optr = out + b * n1 * V + lane;
+    if (REVERSE) optr += (size_t)(n1 - 1) * V;
+    const ptrdiff_t ostep = REVERSE ? -V : V;
+    // shared addresses of the P row and of c for step q of a group of
+    // length gq in stage st
+    auto p_at = [&](int st, int q, int gq) {
+      const int pos = REVERSE ? gq - 1 - q : q;
+      return ring_a + W * (st * len + blk + pos * VV + row * V);
+    };
+    auto c_at = [&](int st, int q) {
+      return ring_a + W * (st * len + 2 * blk + q * vpad + row);
+    };
+    T pa[VB], pb[VB], ca, cb = T(0);
+#pragma unroll
+    for (int j = 0; j < VB; ++j) pa[j] = pb[j] = T(0);
+    mbar_wait(&full[0], 0);
+    mbar_wait(&cdone[0], 0);
+    ld_shared(ca, c_at(0, 0));
+    int st = 0;
+    unsigned par = 0;
+    bool ready = false;  // the next group's operands have landed
+    // Step s = 4g + q: y from c and p, then the next step's operands
+    // into (pn, cn) while the store of y settles.
+    auto step = [&](int g, int q, int gq, const T(&p)[VB], T c, T(&pn)[VB],
+                    T& cn) {
+      const int s = g * kGroup + q;
+      T y = c;
+      if (s > 0) {
+        const uint32_t yp = ybuf + ((s - 1) & 1) * 32 * W;
+        T acc[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i] = T(0);
+#pragma unroll
+        for (int j = 0; j < VB; j += kPer) {
+          Chunk<T> ch;
+          ld_chunk(ch, yp + j * W);
+#pragma unroll
+          for (int t = 0; t < kPer; ++t)
+            if (!VX || j + t < VX) acc[(j + t) % 8] += p[j + t] * ch.v[t];
+        }
+        y = c - (((acc[0] + acc[1]) + (acc[2] + acc[3])) +
+                 ((acc[4] + acc[5]) + (acc[6] + acc[7])));
+      }
+      // lanes >= V write 0: the padding of the next product adds 0
+      st_shared(ybuf + (s & 1) * 32 * W + lane * W, lane < V ? y : T(0));
+      __syncwarp();
+      st_global_if(lane < V, optr, y);
+      optr += ostep;
+      if (q + 1 < gq) {
+        load_row<T, VB, VX>(pn, p_at(st, q + 1, gq), V);
+        ld_shared(cn, c_at(st, q + 1));
+      } else if (s + 1 < n1) {  // first step of the next group
+        const int st1 = st + 1 == S ? 0 : st + 1;
+        const unsigned par1 = st + 1 == S ? par ^ 1 : par;
+        if (!ready) {
+          mbar_wait(&full[st1], par1);
+          mbar_wait(&cdone[st1], par1);
+        }
+        load_row<T, VB, VX>(pn, p_at(st1, 0, min(kGroup, n1 - s - 1)), V);
+        ld_shared(cn, c_at(st1, 0));
+      }
+    };
+    for (int g = 0; g < ngroups; ++g) {
+      const int gq = min(kGroup, n1 - g * kGroup);
+      if (g + 1 < ngroups) {  // look ahead without waiting: usually done
+        const int st1 = st + 1 == S ? 0 : st + 1;
+        const unsigned par1 = st + 1 == S ? par ^ 1 : par;
+        ready = mbar_test(&full[st1], par1) && mbar_test(&cdone[st1], par1);
+      }
+      // kGroup = 4 steps with the register sets in turns; only the last
+      // group can be shorter, so every group starts from (pa, ca)
+      step(g, 0, gq, pa, ca, pb, cb);
+      if (gq > 1) step(g, 1, gq, pb, cb, pa, ca);
+      if (gq > 2) step(g, 2, gq, pa, ca, pb, cb);
+      if (gq > 3) step(g, 3, gq, pb, cb, pa, ca);
+      mbar_arrive(&empty[st]);
+      if (++st == S) {
+        st = 0;
+        par ^= 1;
+      }
+    }
+  } else {  // c-warp q: c = Cinv rhs (forward), Cinv' rhs (backward)
+    const int q = warp - 2;  // for the q-th knot of every group
+    T* rbuf = scratch + 64 + q * 32;
+    auto rhs_of = [&](int g) {
+      const int s = g * kGroup + q;
+      return (s < n1 && lane < V)
+                 ? rb[(size_t)(REVERSE ? n1 - 1 - s : s) * V + lane]
+                 : T(0);
+    };
+    int st = 0;
+    unsigned par = 0;
+    T r = rhs_of(0);
+    for (int g = 0; g < ngroups; ++g) {
+      const T rn = rhs_of(g + 1);  // in flight meanwhile
+      __syncwarp();
+      rbuf[lane] = r;
+      __syncwarp();
+      mbar_wait(&full[st], par);
+      T* stg = ring + (size_t)st * len;
+      const int gq = min(kGroup, n1 - g * kGroup);
+      if (q < gq) {
+        const T* M = stg + (REVERSE ? gq - 1 - q : q) * VV;
+        T acc[4] = {T(0), T(0), T(0), T(0)};
+#pragma unroll
+        for (int j = 0; j < VB; j += kPer) {
+          const Chunk<T> ch = *reinterpret_cast<const Chunk<T>*>(rbuf + j);
+#pragma unroll
+          for (int t = 0; t < kPer; ++t) {
+            const int jj = j + t;
+            if (VX ? jj < VX : jj < V)
+              acc[jj % 4] +=
+                  (REVERSE ? M[jj * V + row] : M[row * V + jj]) * ch.v[t];
+          }
+        }
+        if (lane < V)
+          stg[2 * blk + q * vpad + lane] =
+              (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      }
+      mbar_arrive(&cdone[st]);
+      mbar_arrive(&empty[st]);
+      if (++st == S) {
+        st = 0;
+        par ^= 1;
+      }
+      r = rn;
+    }
+  }
+}
+
+template <typename T, int VB, int VX>
+__global__ void __launch_bounds__(kSweepThreads)
+    tridiag_fwd_kernel(const T* __restrict__ cinv, const T* __restrict__ pfwd,
+                       const T* __restrict__ b, T* __restrict__ out,
+                       const SweepShape sh) {
+  sweep_body<T, false, VB, VX>(cinv, pfwd, b, out, sh);
+}
+
+template <typename T, int VB, int VX>
+__global__ void __launch_bounds__(kSweepThreads)
+    tridiag_bwd_kernel(const T* __restrict__ cinv, const T* __restrict__ pbwd,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       const SweepShape sh) {
+  sweep_body<T, true, VB, VX>(cinv, pbwd, v, out, sh);
 }
 
 template <typename K>
@@ -212,16 +602,55 @@ int factor(const T* diag, const T* off, T* cinv, T* pfwd, T* pbwd, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+template <typename T, bool REVERSE, int VB, int VX = 0>
+cudaError_t launch_sweep(const T* cinv, const T* coup, const T* rhs, T* out,
+                         int B, const SweepShape& sh, size_t bytes,
+                         cudaStream_t stream) {
+  auto kernel = REVERSE ? tridiag_bwd_kernel<T, VB, VX>
+                        : tridiag_fwd_kernel<T, VB, VX>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, kSweepThreads, bytes, stream>>>(cinv, coup, rhs, out, sh);
+  return cudaGetLastError();
+}
+
 template <typename T, bool REVERSE>
 int sweep(const T* cinv, const T* coup, const T* rhs, T* out, int B, int n1,
           int V, void* stream) {
   if (B <= 0 || n1 <= 0 || V <= 0 || V > kMaxV)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = sizeof(T) * (2 * V * (V + 1) + 2 * V);
-  tridiag_sweep_kernel<T, REVERSE><<<B, 32, bytes,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      cinv, coup, rhs, out, n1, V);
-  return static_cast<int>(cudaGetLastError());
+  // The ring's share of one SM: blocks that share an SM split it.
+  int dev = 0, sms = 1;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_sm = std::min((B + sms - 1) / sms, 4);
+  const size_t budget = kRingBytes / per_sm;
+  const int per16 = 16 / sizeof(T);
+  SweepShape sh;
+  sh.n1 = n1;
+  sh.V = V;
+  sh.vpad = round_up(V, per16);
+  sh.blk = round_up(kGroup * V * V, per16);
+  const size_t stage_bytes = sizeof(T) * (2 * sh.blk + kGroup * sh.vpad);
+  const int smax = static_cast<int>(
+      std::clamp<size_t>(budget / stage_bytes, 2, kMaxStages));
+  sh.stages = std::min(smax, (n1 + kGroup - 1) / kGroup);
+  // TMA needs 16-B aligned blocks; the wrappers check the pointers
+  sh.bulk = (V * V * sizeof(T)) % 16 == 0;
+  const size_t bytes =
+      kBarrierBytes + kScratch * sizeof(T) + sh.stages * stage_bytes;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (V == 22)  // the main path's V = nx + nu + 1 of solo12
+    err = launch_sweep<T, REVERSE, 24, 22>(cinv, coup, rhs, out, B, sh,
+                                           bytes, st);
+  else
+    err = launch_sweep<T, REVERSE, kMaxV>(cinv, coup, rhs, out, B, sh, bytes,
+                                          st);
+  return static_cast<int>(err);
 }
 
 }  // namespace

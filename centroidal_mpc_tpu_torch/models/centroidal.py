@@ -51,7 +51,7 @@ class CentroidalModel:
 
     @classmethod
     def from_spec(cls, robot: RobotSpec, dt: float, Q, R, cov_w, cov_eta,
-                  dtype=torch.float32, device="cpu") -> "CentroidalModel":
+                  dtype=torch.float32, *, device) -> "CentroidalModel":
         def t(a):
             return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
                                    device=device)

@@ -21,7 +21,11 @@ What bounds the kernels on an H100 and how they are laid out is written
 at the top of the CUDA source.  On a CPU tensor each wrapper runs its
 plain PyTorch version (a port of the JAX package's XLA twins
 `_block_tridiag_cholesky` / `_block_tridiag_solve`); on a CUDA tensor it
-launches its kernel or raises.  `launches` counts kernel launches.
+launches its kernel or raises.  `launches` counts kernel launches.  When
+V*V*itemsize is a multiple of 16 bytes (V even) the sweeps copy the
+blocks with TMA, so their wrappers then require Cinv and the coupling
+blocks to start on a 16-byte boundary.  `sweep_cost` and `factor_cost`
+give the work of one launch, from which a bound is computed.
 """
 from __future__ import annotations
 
@@ -122,6 +126,10 @@ def _sweep(kernel: str, mats: tuple, rhs: torch.Tensor) -> torch.Tensor:
                               (coup, (B, n1 - 1, V, V)))
     if V > 32:
         raise ValueError(f"{kernel}: V={V} > 32")
+    if (V * V * rhs.element_size()) % 16 == 0 and any(
+            t.numel() and t.data_ptr() % 16 for t in (cinv, coup)):
+        raise ValueError(f"{kernel}: the blocks must start on a 16-byte "
+                         "boundary (the kernel copies them with TMA)")
     out = torch.empty_like(rhs)
     cuda_lib.launch("cmpc_" + kernel, sfx, rhs.device, cinv, coup, rhs,
                     out, B, n1, V)
@@ -146,3 +154,36 @@ def backward_sweep(fac: TridiagFactor, v: torch.Tensor) -> torch.Tensor:
 def solve_batched(fac: TridiagFactor, b: torch.Tensor) -> torch.Tensor:
     """Solve M w = b for every scenario; b, w (B, N+1, V)."""
     return backward_sweep(fac, forward_sweep(fac, b))
+
+
+# ---------------------------------------------------------------------------
+# work per launch (for bounds): each input read once, each output written
+# once, and the floating-point operations of the kernel's arithmetic
+# ---------------------------------------------------------------------------
+
+
+def sweep_cost(B: int, n1: int, V: int, itemsize: int = 4) -> cuda_lib.Cost:
+    """Work of one forward or backward sweep: the Cinv blocks (lower
+    triangular), the coupling blocks and the rhs in, the solution out; a
+    triangular matvec per knot, a dense one per coupling and V
+    subtractions per coupled knot."""
+    n, tri = n1 - 1, cuda_lib.tri(V)
+    vecs = 2 * n1 * V
+    return cuda_lib.Cost(
+        bytes=B * (n1 * tri + n * V * V + vecs) * itemsize,
+        flops=B * (n1 * 2 * tri + n * (2 * V * V + V)),
+        layout_bytes=B * ((n1 + n) * V * V + vecs) * itemsize)
+
+
+def factor_cost(B: int, n1: int, V: int, itemsize: int = 4) -> cuda_lib.Cost:
+    """Work of one factor: the diagonal blocks (symmetric) and the coupling
+    blocks in; Cinv (lower triangular), Pfwd and Pbwd out.  Per knot a
+    Cholesky and a triangular inverse (V^3/3 each); per coupled knot four
+    products of V^2 (V+1) each (W = O C^-T, the lower triangle of W W',
+    Pfwd and Pbwd: each has a triangular factor or a symmetric result)
+    and D - W W' on a triangle."""
+    n, tri = n1 - 1, cuda_lib.tri(V)
+    return cuda_lib.Cost(
+        bytes=B * (2 * n1 * tri + 3 * n * V * V) * itemsize,
+        flops=B * (n1 * 2 * V ** 3 // 3 + n * (4 * V * V * (V + 1) + tri)),
+        layout_bytes=B * (2 * n1 + 3 * n) * V * V * itemsize)

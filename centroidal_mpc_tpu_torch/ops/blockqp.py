@@ -121,7 +121,7 @@ def build_block_qp(model: CentroidalModel, schedule: ContactSchedule,
         cop_u = torch.where(cop_act > 0, hi, zeros_cop)
     qx = (-(cfg.X_track @ cfg.Wx.mT) if cfg.track_state
           else torch.zeros_like(X_prev))
-    penum = sign_enumeration_matrix(3, dtype, dev)
+    penum = sign_enumeration_matrix(3, dtype, device=dev)
     r_dyn = (torch.einsum("bkij,bkj->bki", data.A, X_prev[:, :-1])
              + torch.einsum("bkij,bkj->bki", data.B, U_prev) - data.f)
     radius = _per_lane(radius, X_prev)
@@ -152,7 +152,7 @@ class ZGroups(NamedTuple):
     slack: torch.Tensor   # (B, N+1)
 
 
-def zero_zgroups(B: int, N: int, C: int, dtype, device="cpu") -> ZGroups:
+def zero_zgroups(B: int, N: int, C: int, dtype, device) -> ZGroups:
     """Zero constraint-space vector (a cold dual warm start)."""
     def z(*shape):
         return torch.zeros((B,) + shape, dtype=dtype, device=device)

@@ -17,6 +17,7 @@ import pathlib
 import shutil
 import subprocess
 import time
+from typing import NamedTuple
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[2] / "build"
@@ -34,6 +35,23 @@ _SIGNATURES = {
     "cmpc_tridiag_bwd": [_P] * 4 + [_I] * 3 + [_P],
     "cmpc_dare_lqr": [_P] * 5 + [_I] * 4 + [_P],
 }
+
+
+class Cost(NamedTuple):
+    """Work of one kernel launch, from which its bound is computed.
+    bytes: what the function must move, each input read once and each
+    output written once, with a triangular or symmetric block counted as
+    its lower triangle; flops: its operations, two a multiply-add, with
+    the same structure used; layout_bytes: the same tensors whole, as
+    they lie in device memory."""
+    bytes: int
+    flops: int
+    layout_bytes: int
+
+
+def tri(n: int) -> int:
+    """Entries of the lower triangle of an n x n block."""
+    return n * (n + 1) // 2
 
 
 def _sources() -> list[pathlib.Path]:

@@ -42,6 +42,30 @@ def lqr_gain_plain(Q: torch.Tensor, R: torch.Tensor, A: torch.Tensor,
     return -(hinv @ BtPA)
 
 
+def lqr_cost(S: int, nx: int, nu: int, n_iter: int = 2,
+             itemsize: int = 4) -> cuda_lib.Cost:
+    """Work of one launch (for bounds): A, B and the symmetric Q, R in, K
+    out.  Per step B'P, the symmetric H = R + B'P B, its Cholesky factor
+    L, L^-1 and the symmetric H^-1 = L^-T L^-1 (nu^3/3 each), and B'PA;
+    per update the symmetric Q + (A'P) A, (B'PA)' H^-1 and the symmetric
+    P - (B'PA)' H^-1 B'PA; then K = -H^-1 B'PA.  A symmetric result
+    counts its lower triangle only."""
+    t = cuda_lib.tri
+    gains = (2 * nu * nx * nx              # B'P
+             + 2 * t(nu) * nx + t(nu)      # H = R + B'P B
+             + nu ** 3                     # Cholesky, L^-1, L^-T L^-1
+             + 2 * nu * nx * nx)           # B'PA
+    update = (2 * nx ** 3 + 2 * t(nx) * nx + t(nx)  # Q + (A'P) A
+              + 2 * nx * nu * nu                    # (B'PA)' H^-1
+              + 2 * t(nx) * nu + t(nx))             # P - (.) B'PA
+    pairs = S * (nx * nx + 2 * nx * nu)    # A, B in and K out
+    return cuda_lib.Cost(
+        bytes=(pairs + t(nx) + t(nu)) * itemsize,
+        flops=S * ((n_iter + 1) * gains + n_iter * update
+                   + 2 * nu * nu * nx),
+        layout_bytes=(pairs + nx * nx + nu * nu) * itemsize)
+
+
 def lqr_gain_batched(Q: torch.Tensor, R: torch.Tensor, A: torch.Tensor,
                      B: torch.Tensor, n_iter: int = 2) -> torch.Tensor:
     """K gains for S independent (A, B) pairs in one kernel launch."""

@@ -21,8 +21,8 @@ INF = 1e20  # OSQP-style infinity; finite in float32
 DYN_SLACK = 1e-12
 
 
-def friction_pyramid_matrix(mu: float, dtype=torch.float64,
-                            device="cpu") -> torch.Tensor:
+def friction_pyramid_matrix(mu: float, dtype=torch.float64, *,
+                            device) -> torch.Tensor:
     """Inner linear approximation of the friction cone, 5 rows:
     4 tangential + unilateral (reference src/utils.py:9-16)."""
     mu_lin = mu / np.sqrt(2.0)
@@ -34,8 +34,8 @@ def friction_pyramid_matrix(mu: float, dtype=torch.float64,
          [0.0, 0.0, -1.0]], dtype=dtype, device=device)
 
 
-def sign_enumeration_matrix(n: int, dtype=torch.float64,
-                            device="cpu") -> torch.Tensor:
+def sign_enumeration_matrix(n: int, dtype=torch.float64, *,
+                            device) -> torch.Tensor:
     """(2^n, n) matrix of +-1 sign patterns for the L1 trust region,
     column j = (-1)^(row // 2^j) (reference src/optimizer.py:111-112)."""
     rows = np.arange(2**n)[:, None]

@@ -8,13 +8,17 @@ Phases (each raises on failure, so the script exits non-zero):
   2. build: compiles the hand-written kernels (centroidal_mpc_tpu_torch/
      csrc/*.cu) with nvcc for sm_90a;
   3. kernels: each kernel against its plain PyTorch version on the card,
-     at the small bench shape and the main path's shapes, with CUDA-event
-     times of both;
+     at the small bench shape, the main path's shapes, a horizon that
+     wraps the sweeps' ring (N=165) and a batch of more than one wave
+     (B=300); CUDA-event times of both, warm and with L2 flushed, beside
+     the bound computed from the bytes and operations of the launch;
   4. the slice: 128 solo12_trot_n50 SCP problems in float32 through
      parallel.batch.batched_solve (block backend, frozen linearization,
      power-iteration trust norm, fixed-rho block ADMM with its refinement
      polish), checked for success on every lane, for launches of every
-     kernel, and against the committed float64 reference solution.
+     kernel, and against the committed float64 reference solution; then
+     one more batch under torch.profiler: device time per kernel name and
+     the device's busy share.
 
 Output: a JSON line of per-kernel results, the nvidia-smi name/power-limit
 line, and as the last line {"ok": true, "device": {...}}.
@@ -47,6 +51,14 @@ BATCH = 128
 SEED = 0
 KERNEL_RTOL = 1e-4      # f32 kernel vs plain, relative to the plain max
 PARITY_BAR = 1e-4       # u_err_inf / x_err_inf vs the f64 reference
+# kernel-vs-plain shapes (B, N, V): the bench's kernel_exact shape, the
+# main path's, a horizon that wraps the sweeps' ring, more than one wave
+KERNEL_SHAPES = [(32, 8, 22), (BATCH, 50, 22), (4, 165, 22), (300, 50, 22)]
+# published H100 SXM peaks at 700 W (NVIDIA's data sheet): HBM bytes/s
+# and float32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32_FLOPS = 67e12
+FLUSH_BYTES = 64 << 20  # flushes the 50 MB L2 between cold launches
 
 # the bench headline operating point (bench.py defaults)
 QP = QPSettings(eps_abs=5e-4, eps_rel=5e-4, polish=True, polish_iters=12,
@@ -59,6 +71,17 @@ REPLACES = {
     "tridiag_fwd": "centroidal_mpc_tpu/ops/pallas_blockqp.py:280",
     "tridiag_bwd": "centroidal_mpc_tpu/ops/pallas_blockqp.py:299",
     "dare_lqr": "centroidal_mpc_tpu/ops/pallas_lqr.py:114",
+}
+LIBRARY_NOTE = {
+    "tridiag_factor": "none: no single PyTorch call writes C^-1, Pfwd and "
+                      "Pbwd; a dense torch.linalg.cholesky of M writes none "
+                      "of them",
+    "tridiag_fwd": "none: no single PyTorch call runs a block-tridiagonal "
+                   "sweep over a pre-inverted factor",
+    "tridiag_bwd": "none: no single PyTorch call runs a block-tridiagonal "
+                   "sweep over a pre-inverted factor",
+    "dare_lqr": "none: no single PyTorch call computes truncated-DARE LQR "
+                "gains",
 }
 SOURCES = {
     "tridiag_factor": "centroidal_mpc_tpu_torch/csrc/block_tridiag.cu",
@@ -78,18 +101,85 @@ def reset_counts():
             d[k] = 0
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """Mean CUDA-event time of fn() in ms over `reps` launches."""
+def host_seconds(fn):
+    """Host time of one fn() call (its launch cost), after a sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds
+
+
+def queue_behind_sleep(seconds):
+    """Hold the stream for longer than `seconds` (a spin of 4e9 cycles a
+    second: over 2x at the H100's clocks), so that launches queued
+    meanwhile run back to back and events time the device alone."""
+    torch.cuda._sleep(int(4e9 * seconds) + 10_000)
+
+
+def cuda_ms(fn, reps=20, warmup=3, queued=True):
+    """Mean CUDA-event time of fn() in ms over `reps` back-to-back
+    launches.  queued: first queue them behind a device sleep, so that
+    the time is the device's and not the host's launch rate (a kernel of
+    a few us launches slower than it runs)."""
     for _ in range(warmup):
         fn()
+    host = host_seconds(fn)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        queue_behind_sleep(host * reps)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps=10):
+    """Mean over `reps` launches of one event pair each, with L2 flushed
+    before each launch so that its inputs come from HBM: FLUSH_BYTES are
+    written, then FLUSH_BYTES of another buffer read, so that the dirty
+    lines of the write go back to HBM before the launch and not during
+    it.  Each launch is queued behind a device sleep."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    clean = torch.ones(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    host = host_seconds(fn)
+    pairs = []
+    for _ in range(reps):
+        flush.fill_(1)
+        clean.sum()
+        queue_behind_sleep(host)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.fmean(a.elapsed_time(b) for a, b in pairs)
+
+
+def bound(cost):
+    """(bound_ms, bound_by) from a launch's cuda_lib.Cost: the larger of
+    the bytes it must move over the HBM rate and its flops over the f32
+    rate."""
+    t_bytes = cost.bytes / PEAK_BYTES * 1e3
+    t_ops = cost.flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timings(fn, plain, cost):
+    """The kernel's numbers for the kernels line.  layout_bound_ms: the
+    byte bound of its tensors whole, as the kernel reads them."""
+    bound_ms, bound_by = bound(cost)
+    return dict(ms=cuda_ms(fn), cold_ms=cold_ms(fn),
+                plain_ms=cuda_ms(plain, 3, 1, queued=False),
+                bound_ms=bound_ms, bound_by=bound_by,
+                layout_bound_ms=cost.layout_bytes / PEAK_BYTES * 1e3,
+                library_ms=None)
 
 
 def phase_environment():
@@ -148,7 +238,7 @@ def check(ok, what):
 
 def phase_kernels():
     results = {}
-    for (b, n, v) in [(32, 8, 22), (BATCH, 50, 22)]:
+    for (b, n, v) in KERNEL_SHAPES:
         diag, off, rhs = random_system(b, n, v, seed=7)
         fk = bt.factor_batched(diag, off)
         fp = bt.factor_plain(diag, off)
@@ -174,16 +264,19 @@ def phase_kernels():
         if b == BATCH:   # main-path shape: record errors and times
             results["tridiag_factor"] = dict(
                 max_abs_err=f_abs,
-                ms=cuda_ms(lambda: bt.factor_batched(diag, off)),
-                plain_ms=cuda_ms(lambda: bt.factor_plain(diag, off), 3, 1))
+                **timings(lambda: bt.factor_batched(diag, off),
+                          lambda: bt.factor_plain(diag, off),
+                          bt.factor_cost(b, n + 1, v)))
             results["tridiag_fwd"] = dict(
                 max_abs_err=float((vk - vp).abs().max()),
-                ms=cuda_ms(lambda: bt.forward_sweep(fk, rhs)),
-                plain_ms=cuda_ms(lambda: bt.forward_sweep_plain(fk, rhs)))
+                **timings(lambda: bt.forward_sweep(fk, rhs),
+                          lambda: bt.forward_sweep_plain(fk, rhs),
+                          bt.sweep_cost(b, n + 1, v)))
             results["tridiag_bwd"] = dict(
                 max_abs_err=float((wk - wp).abs().max()),
-                ms=cuda_ms(lambda: bt.backward_sweep(fk, vk)),
-                plain_ms=cuda_ms(lambda: bt.backward_sweep_plain(fk, vk)))
+                **timings(lambda: bt.backward_sweep(fk, vk),
+                          lambda: bt.backward_sweep_plain(fk, vk),
+                          bt.sweep_cost(b, n + 1, v)))
 
     # DARE gains on the real solo12_trot_n50 linearization, 128 scenarios
     prob = presets.build_problem(presets.SOLO12_TROT_N50,
@@ -205,11 +298,15 @@ def phase_kernels():
     check(k_err < KERNEL_RTOL, f"dare_lqr rel err {k_err}")
     results["dare_lqr"] = dict(
         max_abs_err=float((Kk - Kp).abs().max()),
-        ms=cuda_ms(lambda: lqr_kernel.lqr_gain_batched(Q, R, A, Bm, 2)),
-        plain_ms=cuda_ms(lambda: lqr_kernel.lqr_gain_plain(Q, R, A, Bm, 2)))
+        **timings(lambda: lqr_kernel.lqr_gain_batched(Q, R, A, Bm, 2),
+                  lambda: lqr_kernel.lqr_gain_plain(Q, R, A, Bm, 2),
+                  lqr_kernel.lqr_cost(A.shape[0], 9, prob.model.n_u, 2)))
     for name, r in results.items():
-        print(f"# time {name}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms")
+        print(f"# time {name}: kernel {r['ms']:.4f} ms warm, "
+              f"{r['cold_ms']:.4f} ms cold, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{r['layout_bound_ms']:.4f} ms for the bytes of the whole "
+              f"tensors)")
     return results
 
 
@@ -274,17 +371,65 @@ def phase_slice(card):
     check(n_success == BATCH, f"only {n_success}/{BATCH} lanes succeeded")
     check(x_err <= PARITY_BAR and u_err <= PARITY_BAR,
           f"parity: x_err {x_err}, u_err {u_err} > {PARITY_BAR}")
-    return counts
+    return counts, solve
+
+
+def phase_profile(solve):
+    """One more main-path batch under torch.profiler: device time by
+    kernel name and the device's busy share of the batch's CUDA-event
+    time.  Returns each of the port's kernels' mean device ms per launch
+    in the path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        solve()
+        end.record()
+        torch.cuda.synchronize()
+    batch_ms = start.elapsed_time(end)
+    per_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            us, n = per_name.get(ev.name, (0.0, 0))
+            per_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+    busy_ms = sum(us for us, _ in per_name.values()) / 1e3
+    print(f"# profile: batch {batch_ms:.2f} ms under the profiler, device "
+          f"busy {busy_ms:.2f} ms ({busy_ms / batch_ms:.1%}), "
+          f"{sum(n for _, n in per_name.values())} device events")
+    check(busy_ms > 0, "the profiler saw no device time")
+    in_path = {}
+    for name in REPLACES:
+        hits = [v for k, v in per_name.items() if name + "_kernel" in k]
+        us, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+        in_path[name] = us / 1e3 / max(n, 1)
+        print(f"#   {name}: {n} launches, {us / 1e3:.3f} ms in the batch "
+              f"({in_path[name]:.4f} ms per launch, "
+              f"{us / 1e3 / busy_ms:.1%} of busy time)")
+    for k, (us, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"#   top: {us / 1e3:8.3f} ms {n:6d}x {k[:90]}")
+    return in_path
 
 
 def main():
     card = phase_environment()
     phase_build()
     results = phase_kernels()
-    counts = phase_slice(card)
+    counts, solve = phase_slice(card)
+    in_path = phase_profile(solve)
+    for name, r in results.items():
+        # cold reads its inputs from HBM; a warm repeat finds those that
+        # fit in the 50 MB L2, so its share is not one of the HBM bound
+        path = r["bound_ms"] / in_path[name] if in_path[name] else 0.0
+        print(f"# share of bound {name}: {r['bound_ms'] / r['cold_ms']:.1%}"
+              f" cold, {path:.1%} in the batch, "
+              f"{r['bound_ms'] / r['ms']:.1%} warm (from L2)")
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=counts[name],
-                    **results[name]) for name in REPLACES]
+                    **results[name], path_ms=in_path[name],
+                    library_note=LIBRARY_NOTE[name]) for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -120,7 +120,7 @@ def test_unported_modes_raise():
         compute_trajectory_data as tdata)
     from centroidal_mpc_tpu_torch.parallel.batch import tile_ocp_config
     p = tpresets.build_problem(tpresets.SOLO12_TROT_MINI,
-                               dtype=torch.float64)
+                               dtype=torch.float64, device="cpu")
     X, U = p.X0[None], p.U0[None]
     cfg = tile_ocp_config(p.ocp, X[:, 0], X[:, -1], X)
     data = tdata(p.model, p.plan.schedule, X, U, with_covariance=False)

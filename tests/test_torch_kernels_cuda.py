@@ -40,8 +40,15 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
+# (32, 8, 22) the bench's kernel_exact shape, (128, 50, 22) the main
+# path's; (4, 165, 22) wraps the sweeps' ring of stages five times and
+# (300, 50, 22) takes more than one wave of the 132 SMs; odd V copies by
+# cp.async instead of TMA, V other than 22 runs the generic sweep, and N=0
+# has no coupling block
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("b,n,v", [(5, 7, 22), (3, 1, 13), (2, 0, 9)])
+@pytest.mark.parametrize("b,n,v", [(5, 7, 22), (3, 1, 13), (2, 0, 9),
+                                   (32, 8, 22), (128, 50, 22), (4, 165, 22),
+                                   (300, 50, 22), (3, 20, 31), (6, 30, 16)])
 def test_tridiag_kernels_match_plain(cuda, dtype, b, n, v):
     diag, off, rhs = _system(b, n, v, dtype, cuda)
     counts = dict(bt.launches)
@@ -85,3 +92,38 @@ def test_wrappers_raise_on_what_they_do_not_take(cuda):
     fac = bt.factor_batched(diag, off)
     with pytest.raises(ValueError):
         bt.forward_sweep(fac, rhs[:, :-1])   # wrong knot count
+
+
+def _one_element_in(t):
+    """A contiguous copy of t whose data starts one element past a 16-B
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sweeps_raise_on_unaligned_tensors(cuda, dtype):
+    """Even V copies the blocks with TMA: Cinv or a coupling block off a
+    16-byte boundary raises before any launch.  The rhs is read element
+    by element, and odd V copies the blocks with cp.async: those run."""
+    diag, off, rhs = _system(2, 3, 22, dtype, cuda)
+    fac = bt.factor_batched(diag, off)
+    counts = dict(bt.launches)
+    for field, sweep in (("Cinv", bt.forward_sweep),
+                         ("Pfwd", bt.forward_sweep),
+                         ("Cinv", bt.backward_sweep),
+                         ("Pbwd", bt.backward_sweep)):
+        bad = fac._replace(**{field: _one_element_in(getattr(fac, field))})
+        with pytest.raises(ValueError, match="16-byte"):
+            sweep(bad, rhs)
+    assert bt.launches == counts
+    assert _rel(bt.forward_sweep(fac, _one_element_in(rhs)),
+                bt.forward_sweep_plain(fac, rhs)) < TOL[dtype]
+    diag, off, rhs = _system(2, 3, 9, dtype, cuda)
+    fac = bt.factor_batched(diag, off)
+    odd = fac._replace(Cinv=_one_element_in(fac.Cinv),
+                       Pbwd=_one_element_in(fac.Pbwd))
+    assert _rel(bt.backward_sweep(odd, rhs),
+                bt.backward_sweep_plain(fac, rhs)) < TOL[dtype]

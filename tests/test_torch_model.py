@@ -27,7 +27,7 @@ def test_build_problem_matches_jax(name, dtype):
     jp = jpresets.build_problem(jpresets.PRESETS[name],
                                 dtype=getattr(jnp, dtype))
     tp = tpresets.build_problem(tpresets.PRESETS[name],
-                                dtype=getattr(torch, dtype))
+                                dtype=getattr(torch, dtype), device="cpu")
     pairs = [(jp.plan.schedule, tp.plan.schedule), (jp.model, tp.model),
              (jp.ocp, tp.ocp)]
     for jobj, tobj in pairs:

@@ -14,11 +14,18 @@ from centroidal_mpc_tpu.config import presets as jpresets
 from centroidal_mpc_tpu.parallel.batch import batched_solve as jbatched
 from centroidal_mpc_tpu.parallel.batch import tile_ocp_config as jtile
 from centroidal_mpc_tpu.solver import scp as jscp
+from centroidal_mpc_tpu_torch import convert
+from centroidal_mpc_tpu_torch.config import gaits
 from centroidal_mpc_tpu_torch.config import presets as tpresets
+from centroidal_mpc_tpu_torch.config.robots import SOLO12
+from centroidal_mpc_tpu_torch.contact.plan import build_contact_plan
+from centroidal_mpc_tpu_torch.models.centroidal import CentroidalModel
 from centroidal_mpc_tpu_torch.ops import block_tridiag as bt
+from centroidal_mpc_tpu_torch.ops import blockqp as tbq
 from centroidal_mpc_tpu_torch.ops import lqr_kernel
 from centroidal_mpc_tpu_torch.parallel.batch import batched_solve
 from centroidal_mpc_tpu_torch.parallel.batch import tile_ocp_config
+from centroidal_mpc_tpu_torch.solver import ocp as tocp
 from centroidal_mpc_tpu_torch.solver import scp as tscp
 
 from torch_parity_util import (BENCH_QP, perturbed_batch, port_problem,
@@ -72,7 +79,7 @@ def test_f32_cpu_meets_reference_parity_bar():
     1e-4 parity bar (BASELINE.md) of the float64 reference solution."""
     _, qp = qp_settings_pair(**BENCH_QP)
     prob = tpresets.build_problem(tpresets.SOLO12_TROT_N50,
-                                  dtype=torch.float32, qp=qp)
+                                  dtype=torch.float32, qp=qp, device="cpu")
     scp = dataclasses.replace(prob.scp, qp_backend="block",
                               norm_method="power")
     Xb, Ub = perturbed_batch(prob.X0.numpy(), prob.U0.numpy(), 2, seed=0)
@@ -106,7 +113,7 @@ def test_unported_scp_paths_raise():
     """qp_backend='dense' (the preset default), re-linearization and
     stochastic problems are later slices: they raise, not run."""
     prob = tpresets.build_problem(tpresets.SOLO12_TROT_MINI,
-                                  dtype=torch.float64)
+                                  dtype=torch.float64, device="cpu")
     X, U = prob.X0[None], prob.U0[None]
     cfg = tile_ocp_config(prob.ocp, X[:, 0], X[:, -1], X)
     for scp in (prob.scp,
@@ -115,4 +122,40 @@ def test_unported_scp_paths_raise():
         with pytest.raises(NotImplementedError):
             batched_solve(prob.model, prob.plan.schedule, cfg, X, U, scp)
     with pytest.raises(NotImplementedError):
-        tpresets.build_problem(tpresets.SOLO12_TROT_MINI, stochastic=True)
+        tpresets.build_problem(tpresets.SOLO12_TROT_MINI, stochastic=True,
+                               device="cpu")
+
+
+def test_build_problem_defaults_to_the_card():
+    """build_problem with no device targets the card: it builds there when
+    there is one, and raises, never building on the CPU, when there is
+    none."""
+    if torch.cuda.is_available():
+        prob = tpresets.build_problem(tpresets.SOLO12_TROT_MINI)
+        assert prob.X0.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tpresets.build_problem(tpresets.SOLO12_TROT_MINI)
+
+
+@pytest.mark.parametrize("build", [
+    pytest.param(lambda: convert.to_tensor(np.zeros(3)), id="to_tensor"),
+    pytest.param(lambda: convert.from_numpy(tocp.OcpConfig, {}),
+                 id="from_numpy"),
+    pytest.param(lambda: build_contact_plan(SOLO12, gaits.SOLO12_TROT_MINI,
+                                            0.01), id="build_contact_plan"),
+    pytest.param(lambda: CentroidalModel.from_spec(
+        SOLO12, 0.01, np.eye(9), np.eye(12), np.eye(12), np.eye(9)),
+        id="CentroidalModel.from_spec"),
+    pytest.param(lambda: tocp.friction_pyramid_matrix(0.5),
+                 id="friction_pyramid_matrix"),
+    pytest.param(lambda: tocp.sign_enumeration_matrix(3),
+                 id="sign_enumeration_matrix"),
+    pytest.param(lambda: tbq.zero_zgroups(1, 2, 4, torch.float32),
+                 id="zero_zgroups"),
+])
+def test_builders_take_no_default_device(build):
+    """The port's lower-level builders have no default device: a caller
+    names one, so nothing lands on the CPU unasked."""
+    with pytest.raises(TypeError, match="device"):
+        build()

@@ -78,16 +78,17 @@ def assert_tree_close(a, b, rtol, atol, path=""):
 
 def port_problem(jprob, dtype=torch.float64):
     """The port's (model, schedule, ocp, scp settings, X0, U0) converted
-    from a JAX-package Problem."""
-    schedule = convert.from_numpy(ContactSchedule,
-                                  np_fields(jprob.plan.schedule), dtype=dtype)
-    model = convert.from_numpy(CentroidalModel, np_fields(jprob.model),
-                               dtype=dtype)
-    ocp = convert.from_numpy(OcpConfig, np_fields(jprob.ocp), dtype=dtype)
+    from a JAX-package Problem, on the CPU."""
+    def conv(cls, obj):
+        return convert.from_numpy(cls, np_fields(obj), "cpu", dtype)
+
     scp = convert.settings_from_dict(ScpSettings,
                                      dataclasses.asdict(jprob.scp))
-    return (model, schedule, ocp, scp, convert.to_tensor(jprob.X0, dtype=dtype),
-            convert.to_tensor(jprob.U0, dtype=dtype))
+    return (conv(CentroidalModel, jprob.model),
+            conv(ContactSchedule, jprob.plan.schedule),
+            conv(OcpConfig, jprob.ocp), scp,
+            convert.to_tensor(jprob.X0, "cpu", dtype),
+            convert.to_tensor(jprob.U0, "cpu", dtype))
 
 
 def perturbed_batch(X0: np.ndarray, U0: np.ndarray, batch: int, seed=0,
@@ -138,6 +139,6 @@ def qp_pair(jprob, batch):
     model, schedule, ocp, *_ = port_problem(jprob)
     X, U = torch.as_tensor(Xb), torch.as_tensor(Ub)
     tcfg = tile_ocp_config(ocp, X[:, 0], X[:, -1], X)
-    tdata = convert.from_numpy(TrajectoryData, np_fields(jdata))
+    tdata = convert.from_numpy(TrajectoryData, np_fields(jdata), "cpu")
     tqp = tbq.build_block_qp(model, schedule, tcfg, X, U, tdata, 100.0, 50.0)
     return jqp, tqp, Xb, Ub
