@@ -21,11 +21,36 @@
 // The batch is not padded.  Square roots and divisions are IEEE-rounded
 // (no rsqrt approximation, no fast-math).
 //
-// The factor.  It runs ~4 small dense steps per knot (two V^3 products, a
-// Cholesky, a triangular inverse, two more products) along the chain of
-// knots: one thread block per scenario, the V x V work of a knot spread
-// over the block, the carried C_{k-1}^{-1} in shared memory.  It is bound
-// by that chain, far from its 15.0 us byte bound at B=128, N=50, V=22.
+// The factor: two launches on the caller's stream, both replacing
+// factor_batched (_factor_kernel, _chol_inv).  Only C_k^{-1} and W_k
+// depend on the knot before; Pfwd and Pbwd feed nothing later in the
+// chain.  So:
+//   - tridiag_factor_chain: one warp per scenario (32-thread blocks), lane
+//     i owning row i (V <= 32).  Per knot: W_k = O_{k-1} C_{k-1}^{-T} (row
+//     i of O in registers, rows of C_{k-1}^{-1} broadcast from shared
+//     memory, the triangle only); S = D_k - W W' (W published through
+//     shared memory); the Cholesky of S in registers, pivots and column
+//     entries passed by __shfl_sync; C_k^{-1} by columns, lane j owning
+//     column j and reading the rows of L from shared memory, so no lane
+//     waits on another.  D_{k+1} and O_k are copied by cp.async into a
+//     double buffer while knot k computes (16-byte copies when the blocks
+//     and pointers allow, else one element each).  Only __syncwarp and
+//     shuffles synchronise it.  It writes C_k^{-1} and, as scratch, W_k
+//     into the Pfwd slot.  What bounds it: one warp's dependent latency
+//     per knot (per pivot a shuffle, IEEE sqrt and reciprocal, the next
+//     column's update), some 3.4k instructions (SASS, V=22 f32) issued by
+//     a warp that is alone on its SM, so each waits out the latency of
+//     the one before; at B=128 each of 128 SMs holds one such warp.
+//   - tridiag_factor_couple: one block per (scenario, coupled knot), no
+//     chain: it loads W_k, C_k^{-1} and C_{k-1}^{-1}, then writes
+//     Pfwd[k-1] = C_k^{-1} W_k in place over W_k and Pbwd[k-1] =
+//     C_{k-1}^{-T} W_k'.  No block reads what another writes.  Bytes bound
+//     it: ~62 MB of whole blocks moved at B=128, N=50, V=22 in f32 against
+//     142 MFLOP.
+// No tensor cores: mma/wgmma in TF32 keeps ~10 mantissa bits, and the port
+// runs f32 with TF32 off against a 1e-4 kernel-vs-plain bar (3xTF32 in
+// the couple kernel is later work).  The function's bound is 15.0 us
+// (bytes) at B=128, N=50, V=22 in f32.
 //
 // The sweeps.  Each must read per knot the lower triangle of a Cinv block
 // and a dense coupling block: 20.1 MB per sweep at B=128, N=50, V=22 in
@@ -72,106 +97,7 @@
 namespace {
 
 constexpr int kMaxV = 32;
-constexpr int kFactorThreads = 256;
-
-template <typename T>
-__global__ void tridiag_factor_kernel(const T* __restrict__ diag,
-                                      const T* __restrict__ off,
-                                      T* __restrict__ cinv,
-                                      T* __restrict__ pfwd,
-                                      T* __restrict__ pbwd, int n1, int V) {
-  extern __shared__ unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int ld = V + 1;  // odd row pitch: conflict-free column access
-  const int mat = V * ld;
-  T* S = sm;             // D_k - W W' (lower triangle updated in place)
-  T* L = S + mat;        // Cholesky factor C_k
-  T* X = L + mat;        // C_k^{-1}
-  T* Xp = X + mat;       // C_{k-1}^{-1}
-  T* W = Xp + mat;       // W_k
-  T* O = W + mat;        // O_{k-1}
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int VV = V * V;
-  const size_t b = blockIdx.x;
-  const T* D = diag + b * n1 * VV;
-  const T* Of = off + b * (n1 - 1) * VV;
-  T* Ci = cinv + b * n1 * VV;
-  T* Pf = pfwd + b * (n1 - 1) * VV;
-  T* Pb = pbwd + b * (n1 - 1) * VV;
-
-  for (int k = 0; k < n1; ++k) {
-    for (int e = tid; e < VV; e += nt) {
-      const int i = e / V, j = e - i * V;
-      S[i * ld + j] = D[(size_t)k * VV + e];
-      if (k > 0) O[i * ld + j] = Of[(size_t)(k - 1) * VV + e];
-    }
-    __syncthreads();
-    if (k > 0) {
-      // W[i][j] = sum_l O[i][l] Xp[j][l]      (W = O C_{k-1}^{-T})
-      for (int e = tid; e < VV; e += nt) {
-        const int i = e / V, j = e - i * V;
-        T acc = T(0);
-        for (int l = 0; l < V; ++l) acc += O[i * ld + l] * Xp[j * ld + l];
-        W[i * ld + j] = acc;
-      }
-      __syncthreads();
-      // S -= W W'
-      for (int e = tid; e < VV; e += nt) {
-        const int i = e / V, j = e - i * V;
-        T acc = T(0);
-        for (int l = 0; l < V; ++l) acc += W[i * ld + l] * W[j * ld + l];
-        S[i * ld + j] -= acc;
-      }
-      __syncthreads();
-    }
-    // Cholesky, column by column: L[:, c] = S[:, c] / sqrt(S[c][c]), then
-    // the trailing lower triangle loses L[:, c] L[:, c]'.
-    for (int c = 0; c < V; ++c) {
-      const T isq = T(1) / sqrt(S[c * ld + c]);
-      for (int i = tid; i < V; i += nt)
-        L[i * ld + c] = (i >= c) ? S[i * ld + c] * isq : T(0);
-      __syncthreads();
-      for (int e = tid; e < VV; e += nt) {
-        const int i = e / V, j = e - i * V;
-        if (j > c && i >= j) S[i * ld + j] -= L[i * ld + c] * L[j * ld + c];
-      }
-      __syncthreads();
-    }
-    // X = L^{-1} by forward substitution, one column per thread:
-    // X[i][j] = (delta_ij - sum_{l<i} L[i][l] X[l][j]) / L[i][i]
-    for (int j = tid; j < V; j += nt) {
-      for (int i = 0; i < V; ++i) {
-        if (i < j) {
-          X[i * ld + j] = T(0);
-          continue;
-        }
-        T acc = (i == j) ? T(1) : T(0);
-        for (int l = j; l < i; ++l) acc -= L[i * ld + l] * X[l * ld + j];
-        X[i * ld + j] = acc / L[i * ld + i];
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < VV; e += nt) {
-      const int i = e / V, j = e - i * V;
-      Ci[(size_t)k * VV + e] = X[i * ld + j];
-      if (k > 0) {
-        T pf = T(0), pb = T(0);
-        for (int l = 0; l < V; ++l) {
-          pf += X[i * ld + l] * W[l * ld + j];   // (C_k^{-1} W)[i][j]
-          pb += W[j * ld + l] * Xp[l * ld + i];  // (W C_{k-1}^{-1})[j][i]
-        }
-        Pf[(size_t)(k - 1) * VV + e] = pf;
-        Pb[(size_t)(k - 1) * VV + e] = pb;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < VV; e += nt) {
-      const int i = e / V, j = e - i * V;
-      Xp[i * ld + j] = X[i * ld + j];
-    }
-    __syncthreads();
-  }
-}
+constexpr int kCoupleThreads = 256;
 
 // ---------------------------------------------------------------------------
 // Solve sweeps (design in the note at the top of the file).
@@ -580,6 +506,258 @@ __global__ void __launch_bounds__(kSweepThreads)
   sweep_body<T, true, VB, VX>(cinv, pbwd, v, out, sh);
 }
 
+// ---------------------------------------------------------------------------
+// Factor (design in the note at the top of the file).
+
+__device__ __forceinline__ void st_chunk(uint32_t a, const Chunk<float>& c) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(a),
+               "f"(c.v[0]), "f"(c.v[1]), "f"(c.v[2]), "f"(c.v[3])
+               : "memory");
+}
+__device__ __forceinline__ void st_chunk(uint32_t a, const Chunk<double>& c) {
+  asm volatile("st.shared.v2.f64 [%0], {%1, %2};" ::"r"(a), "d"(c.v[0]),
+               "d"(c.v[1])
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Wait until at most `N` of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// One V x V block (VV contiguous elements) into shared memory by the warp:
+// 16 bytes a copy when `vec` (block and pointers 16-B aligned), else one
+// element a copy.
+template <typename T>
+__device__ __forceinline__ void copy_block(T* dst, const T* src, int VV,
+                                           bool vec, int lane) {
+  if (vec) {
+    const int n = VV * static_cast<int>(sizeof(T)) / 16;
+    for (int e = lane; e < n; e += 32)
+      cp_async16(reinterpret_cast<char*>(dst) + 16 * e,
+                 reinterpret_cast<const char*>(src) + 16 * e);
+  } else {
+    for (int e = lane; e < VV; e += 32) cp_async_elem(dst + e, src + e);
+  }
+}
+
+// The knot chain of one scenario per 32-thread block: C_k^{-1} into cinv
+// and W_k into w (slot k-1).  Lane i owns row i; lanes V..31 carry
+// identity rows, so the generic width (VX = 0) runs all VB = 32 columns
+// with no bounds checks.  VX is V when known at compile time (the main
+// path's 22: VB = 24), and then only its columns run.  Shared memory, in
+// elements of T: D and O double-buffered [2][blkp] each (blocks as in
+// device memory, blkp = V*V rounded up to 16 B), then three VB x VB
+// blocks with 16-B rows: X (the last knot's C^{-1}), W and L.
+template <typename T, int VB, int VX>
+__global__ void __launch_bounds__(32)
+    tridiag_factor_chain_kernel(const T* __restrict__ diag,
+                                const T* __restrict__ off,
+                                T* __restrict__ cinv, T* __restrict__ wout,
+                                int n1, int Vr, int vec) {
+  constexpr int kPer = 16 / sizeof(T);
+  constexpr int NV = VX ? VX : VB;  // columns that run
+  constexpr int Z = sizeof(T);
+  extern __shared__ __align__(16) unsigned char chain_smem[];
+  const int V = VX ? VX : Vr;
+  const int VV = V * V;
+  const int blkp = (VV + kPer - 1) / kPer * kPer;
+  T* Dsm = reinterpret_cast<T*>(chain_smem);
+  T* Osm = Dsm + 2 * blkp;
+  T* Xsm = Osm + 2 * blkp;
+  T* Wsm = Xsm + VB * VB;
+  T* Lsm = Wsm + VB * VB;
+  const uint32_t xa = smem_addr(Xsm), wa = smem_addr(Wsm),
+                 la = smem_addr(Lsm);
+  const int lane = threadIdx.x;
+  const bool real = lane < V;
+  const bool owns = lane < VB;  // has a row of X, W and L
+  const int row = real ? lane : 0;
+  const size_t b = blockIdx.x;
+  const T* Db = diag + b * n1 * VV;
+  const T* Ob = off + b * (n1 - 1) * VV;
+  T* Cb = cinv + b * n1 * VV;
+  T* Wb = wout + b * (n1 - 1) * VV;
+
+  for (int e = lane; e < 3 * VB * VB; e += 32) Xsm[e] = T(0);
+  copy_block(Dsm, Db, VV, vec, lane);
+  cp_async_commit();
+
+  for (int k = 0; k < n1; ++k) {
+    const int cur = k & 1;
+    if (k + 1 < n1) {  // D_{k+1} and O_k in flight while knot k computes
+      copy_block(Dsm + (cur ^ 1) * blkp, Db + (size_t)(k + 1) * VV, VV, vec,
+                 lane);
+      copy_block(Osm + (cur ^ 1) * blkp, Ob + (size_t)k * VV, VV, vec, lane);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+
+    T s[VB];
+    if (k > 0) {
+      // W[i][j] = sum_{l<=j} O[i][l] X[j][l]   (W = O C_{k-1}^{-T})
+      T o[VB];
+      load_row<T, VB, VX>(o, smem_addr(Osm + cur * blkp + row * V), V);
+      T w[VB];
+#pragma unroll
+      for (int j = 0; j < VB; ++j) {
+        w[j] = T(0);
+        if (j >= NV) continue;
+        T acc = T(0);
+#pragma unroll
+        for (int l0 = 0; l0 <= j; l0 += kPer) {
+          Chunk<T> ch;
+          ld_chunk(ch, xa + Z * (j * VB + l0));
+#pragma unroll
+          for (int t = 0; t < kPer; ++t)
+            if (l0 + t <= j) acc += o[l0 + t] * ch.v[t];
+        }
+        w[j] = real ? acc : T(0);
+      }
+      if (owns) {
+#pragma unroll
+        for (int j = 0; j < VB; j += kPer) {
+          Chunk<T> ch;
+#pragma unroll
+          for (int t = 0; t < kPer; ++t) ch.v[t] = w[j + t];
+          st_chunk(wa + Z * (lane * VB + j), ch);
+        }
+      }
+      __syncwarp();
+      // S[i][j] = D[i][j] - sum_l W[i][l] W[j][l]
+      load_row<T, VB, VX>(s, smem_addr(Dsm + cur * blkp + row * V), V);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        T acc = T(0);
+#pragma unroll
+        for (int l0 = 0; l0 < NV; l0 += kPer) {
+          Chunk<T> ch;
+          ld_chunk(ch, wa + Z * (j * VB + l0));
+#pragma unroll
+          for (int t = 0; t < kPer; ++t)
+            if (l0 + t < NV) acc += w[l0 + t] * ch.v[t];
+        }
+        s[j] -= acc;
+      }
+    } else {
+      load_row<T, VB, VX>(s, smem_addr(Dsm + row * V), V);
+    }
+    if (!real) {
+#pragma unroll
+      for (int j = 0; j < VB; ++j) s[j] = j == lane ? T(1) : T(0);
+    }
+
+    // Cholesky in registers, right-looking: the pivot of column c from
+    // lane c, then row i's trailing entries lose L[i][c] L[j][c], L[j][c]
+    // from lane j.  s becomes row i of L (zero right of the diagonal).
+    T isq[NV];
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      isq[c] = T(1) / sqrt(__shfl_sync(0xffffffffu, s[c], c));
+      const T lc = lane >= c ? s[c] * isq[c] : T(0);
+      s[c] = lc;
+#pragma unroll
+      for (int j = c + 1; j < NV; ++j)
+        s[j] -= lc * __shfl_sync(0xffffffffu, lc, j);
+    }
+    if (owns) {
+#pragma unroll
+      for (int j = 0; j < VB; j += kPer) {
+        Chunk<T> ch;
+#pragma unroll
+        for (int t = 0; t < kPer; ++t)
+          ch.v[t] = j + t < NV ? s[j + t] : T(0);
+        st_chunk(la + Z * (lane * VB + j), ch);
+      }
+    }
+    __syncwarp();
+
+    // C_k^{-1} by columns: lane j runs X[i][j] = (delta_ij -
+    // sum_{l<i} L[i][l] X[l][j]) / L[i][i] down its column, the rows of L
+    // broadcast from shared memory (X[l][j] = 0 for l < j).
+    T x[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      T acc = lane == i ? T(1) : T(0);
+#pragma unroll
+      for (int l0 = 0; l0 < i; l0 += kPer) {
+        Chunk<T> ch;
+        ld_chunk(ch, la + Z * (i * VB + l0));
+#pragma unroll
+        for (int t = 0; t < kPer; ++t)
+          if (l0 + t < i) acc -= ch.v[t] * x[l0 + t];
+      }
+      x[i] = acc * isq[i];
+    }
+    if (owns) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) st_shared(xa + Z * (i * VB + lane), x[i]);
+    }
+    __syncwarp();
+
+    // C_k^{-1} and W_k out, coalesced from shared memory
+    for (int e = lane; e < VV; e += 32) {
+      const int i = e / V, j = e - i * V;
+      Cb[(size_t)k * VV + e] = Xsm[i * VB + j];
+      if (k > 0) Wb[(size_t)(k - 1) * VV + e] = Wsm[i * VB + j];
+    }
+  }
+}
+
+// Pfwd[k-1] = C_k^{-1} W_k (over W_k, in place) and Pbwd[k-1] =
+// C_{k-1}^{-T} W_k' for one (scenario, coupled knot k) per block.  The
+// blocks sit in shared memory with the odd pitch V+1 (conflict-free
+// column reads); only the nonzero part of each C^{-1} is summed.
+template <typename T>
+__global__ void __launch_bounds__(kCoupleThreads)
+    tridiag_factor_couple_kernel(const T* __restrict__ cinv, T* pfwd,
+                                 T* __restrict__ pbwd, int n, int V) {
+  extern __shared__ __align__(16) unsigned char couple_smem[];
+  T* W = reinterpret_cast<T*>(couple_smem);
+  const int ld = V + 1;
+  T* X = W + V * ld;   // C_k^{-1}
+  T* Xp = X + V * ld;  // C_{k-1}^{-1}
+  const int VV = V * V;
+  const size_t slot = blockIdx.x;  // b * n + k - 1
+  const size_t b = slot / n, k = slot % n + 1;
+  const T* Ck = cinv + (b * (n + 1) + k) * VV;
+  T* Pf = pfwd + slot * VV;
+  T* Pb = pbwd + slot * VV;
+  for (int e = threadIdx.x; e < VV; e += blockDim.x) {
+    const int i = e / V, j = e - i * V;
+    W[i * ld + j] = Pf[e];
+    X[i * ld + j] = Ck[e];
+    Xp[i * ld + j] = Ck[e - VV];
+  }
+  __syncthreads();  // every read of W before any write over it
+  for (int e = threadIdx.x; e < 2 * VV; e += blockDim.x) {
+    const bool fwd = e < VV;
+    const int f = fwd ? e : e - VV;
+    const int i = f / V, j = f - i * V;
+    T acc = T(0);
+    if (fwd) {
+      for (int l = 0; l <= i; ++l) acc += X[i * ld + l] * W[l * ld + j];
+      Pf[f] = acc;
+    } else {
+      for (int l = i; l < V; ++l) acc += Xp[l * ld + i] * W[j * ld + l];
+      Pb[f] = acc;
+    }
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -588,21 +766,60 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+template <typename T, int VB, int VX = 0>
+cudaError_t launch_chain(const T* diag, const T* off, T* cinv, T* w, int B,
+                         int n1, int V, int vec, cudaStream_t stream) {
+  const int blkp = round_up(V * V, 16 / sizeof(T));
+  const size_t bytes = sizeof(T) * (4 * blkp + 3 * VB * VB);
+  auto kernel = tridiag_factor_chain_kernel<T, VB, VX>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, 32, bytes, stream>>>(diag, off, cinv, w, n1, V, vec);
+  return cudaGetLastError();
+}
+
+// C_k^{-1} into cinv (B, n1, V, V) and W_k into w (B, n1-1, V, V).
 template <typename T>
-int factor(const T* diag, const T* off, T* cinv, T* pfwd, T* pbwd, int B,
-           int n1, int V, void* stream) {
+int factor_chain(const T* diag, const T* off, T* cinv, T* w, int B, int n1,
+                 int V, void* stream) {
   if (B <= 0 || n1 <= 0 || V <= 0 || V > kMaxV)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = 6 * sizeof(T) * V * (V + 1);
-  cudaError_t err = allow_smem(tridiag_factor_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tridiag_factor_kernel<T><<<B, kFactorThreads, bytes,
-                             static_cast<cudaStream_t>(stream)>>>(
-      diag, off, cinv, pfwd, pbwd, n1, V);
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = (V * V * sizeof(T)) % 16 == 0 && aligned(diag) &&
+                  (n1 == 1 || aligned(off));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      V == 22  // the main path's V = nx + nu + 1 of solo12
+          ? launch_chain<T, 24, 22>(diag, off, cinv, w, B, n1, V, vec, st)
+          : launch_chain<T, kMaxV>(diag, off, cinv, w, B, n1, V, vec, st);
+  return static_cast<int>(err);
+}
+
+// Pfwd over W in pfwd (B, n1-1, V, V), Pbwd into pbwd, from cinv.
+template <typename T>
+int factor_couple(const T* cinv, T* pfwd, T* pbwd, int B, int n1, int V,
+                  void* stream) {
+  if (B <= 0 || n1 <= 0 || V <= 0 || V > kMaxV)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n1 == 1) return static_cast<int>(cudaSuccess);  // no coupled knot
+  const size_t bytes = 3 * sizeof(T) * V * (V + 1);
+  tridiag_factor_couple_kernel<T><<<B * (n1 - 1), kCoupleThreads, bytes,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      cinv, pfwd, pbwd, n1 - 1, V);
   return static_cast<int>(cudaGetLastError());
 }
 
-int round_up(int x, int m) { return (x + m - 1) / m * m; }
+template <typename T>
+int factor(const T* diag, const T* off, T* cinv, T* pfwd, T* pbwd, int B,
+           int n1, int V, void* stream) {
+  const int err = factor_chain<T>(diag, off, cinv, pfwd, B, n1, V, stream);
+  if (err != 0) return err;
+  return factor_couple<T>(cinv, pfwd, pbwd, B, n1, V, stream);
+}
 
 template <typename T, bool REVERSE, int VB, int VX = 0>
 cudaError_t launch_sweep(const T* cinv, const T* coup, const T* rhs, T* out,
@@ -671,6 +888,30 @@ int cmpc_tridiag_factor_f64(const double* diag, const double* off,
                             double* cinv, double* pfwd, double* pbwd, int B,
                             int n1, int V, void* stream) {
   return factor<double>(diag, off, cinv, pfwd, pbwd, B, n1, V, stream);
+}
+
+int cmpc_tridiag_factor_chain_f32(const float* diag, const float* off,
+                                  float* cinv, float* w, int B, int n1, int V,
+                                  void* stream) {
+  return factor_chain<float>(diag, off, cinv, w, B, n1, V, stream);
+}
+
+int cmpc_tridiag_factor_chain_f64(const double* diag, const double* off,
+                                  double* cinv, double* w, int B, int n1,
+                                  int V, void* stream) {
+  return factor_chain<double>(diag, off, cinv, w, B, n1, V, stream);
+}
+
+int cmpc_tridiag_factor_couple_f32(const float* cinv, float* pfwd,
+                                   float* pbwd, int B, int n1, int V,
+                                   void* stream) {
+  return factor_couple<float>(cinv, pfwd, pbwd, B, n1, V, stream);
+}
+
+int cmpc_tridiag_factor_couple_f64(const double* cinv, double* pfwd,
+                                   double* pbwd, int B, int n1, int V,
+                                   void* stream) {
+  return factor_couple<double>(cinv, pfwd, pbwd, B, n1, V, stream);
 }
 
 int cmpc_tridiag_fwd_f32(const float* cinv, const float* pfwd,

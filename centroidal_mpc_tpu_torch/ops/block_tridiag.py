@@ -6,7 +6,12 @@ kernels (`csrc/block_tridiag.cu`) replace its three `pl.pallas_call`s:
   * `factor_batched` (kernel `tridiag_factor`) replaces `factor_batched`
     (pallas_blockqp.py:203): per scenario, the blocked Cholesky of
     M = P + sigma I + A' diag(rho) A over the N+1 knots, stored
-    pre-inverted;
+    pre-inverted.  Each call is two device launches: the knot chain
+    (`tridiag_factor_chain_kernel`: Cinv and W) and the couplings
+    (`tridiag_factor_couple_kernel`: Pfwd over W, and Pbwd).
+    `factor_chain` and `factor_couple` launch each alone, so that each
+    can be checked and timed; the main path calls neither, and
+    `launches["tridiag_factor"]` counts calls of `factor_batched`;
   * `forward_sweep` (kernel `tridiag_fwd`) and `backward_sweep` (kernel
     `tridiag_bwd`) replace the two sweeps of `solve_batched`
     (pallas_blockqp.py:280, :299); `solve_batched` runs both.
@@ -21,11 +26,13 @@ What bounds the kernels on an H100 and how they are laid out is written
 at the top of the CUDA source.  On a CPU tensor each wrapper runs its
 plain PyTorch version (a port of the JAX package's XLA twins
 `_block_tridiag_cholesky` / `_block_tridiag_solve`); on a CUDA tensor it
-launches its kernel or raises.  `launches` counts kernel launches.  When
+launches its kernel or raises.  `launches` counts the wrappers' calls on
+the card (one per launch, the factor's pair once).  When
 V*V*itemsize is a multiple of 16 bytes (V even) the sweeps copy the
 blocks with TMA, so their wrappers then require Cinv and the coupling
-blocks to start on a 16-byte boundary.  `sweep_cost` and `factor_cost`
-give the work of one launch, from which a bound is computed.
+blocks to start on a 16-byte boundary.  `sweep_cost`, `factor_cost`
+(the whole factor) and `factor_chain_cost` / `factor_couple_cost` (its
+two launches) give the work from which a bound is computed.
 """
 from __future__ import annotations
 
@@ -53,10 +60,12 @@ def _matvec(m, v):
 # ---------------------------------------------------------------------------
 
 
-def factor_plain(diag: torch.Tensor, off: torch.Tensor) -> TridiagFactor:
-    """Blocked Cholesky M = L L', sequential over knots.
-    diag (B, N+1, V, V), off (B, N, V, V) (off[:, k] couples knot k+1's
-    rows to knot k's columns)."""
+def factor_chain_plain(diag: torch.Tensor,
+                       off: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The knot chain of the blocked Cholesky M = L L', sequential over
+    knots.  diag (B, N+1, V, V), off (B, N, V, V) (off[:, k] couples knot
+    k+1's rows to knot k's columns).  Returns Cinv (B, N+1, V, V) and W
+    (B, N, V, V), slot k-1 = W_k = O_{k-1} C_{k-1}^{-T}."""
     n1, V = diag.shape[1], diag.shape[-1]
     c = torch.linalg.cholesky(diag[:, 0])
     chol, ws = [c], []
@@ -71,8 +80,21 @@ def factor_plain(diag: torch.Tensor, off: torch.Tensor) -> TridiagFactor:
     eye = torch.eye(V, dtype=diag.dtype, device=diag.device).expand_as(chol)
     cinv = torch.linalg.solve_triangular(chol, eye, upper=False)
     W = torch.stack(ws, dim=1) if ws else off.new_zeros(off.shape)
-    return TridiagFactor(Cinv=cinv, Pfwd=cinv[:, 1:] @ W,
-                         Pbwd=cinv[:, :-1].mT @ W.mT)
+    return cinv, W
+
+
+def factor_couple_plain(cinv: torch.Tensor,
+                        w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The couplings from the chain's output: Pfwd[k-1] = C_k^{-1} W_k and
+    Pbwd[k-1] = C_{k-1}^{-T} W_k'."""
+    return cinv[:, 1:] @ w, cinv[:, :-1].mT @ w.mT
+
+
+def factor_plain(diag: torch.Tensor, off: torch.Tensor) -> TridiagFactor:
+    """Blocked Cholesky M = L L', pre-inverted: the chain, then the
+    couplings."""
+    cinv, w = factor_chain_plain(diag, off)
+    return TridiagFactor(cinv, *factor_couple_plain(cinv, w))
 
 
 def forward_sweep_plain(fac: TridiagFactor, b: torch.Tensor) -> torch.Tensor:
@@ -100,22 +122,57 @@ def backward_sweep_plain(fac: TridiagFactor,
 # ---------------------------------------------------------------------------
 
 
-def factor_batched(diag: torch.Tensor, off: torch.Tensor) -> TridiagFactor:
-    """Pre-inverted blocked Cholesky factor of every scenario's M."""
-    if diag.device.type == "cpu":
-        return factor_plain(diag, off)
+def _factor_args(name: str, diag: torch.Tensor, off: torch.Tensor):
     B, n1, V = diag.shape[0], diag.shape[1], diag.shape[-1]
-    sfx = cuda_lib.check_args("tridiag_factor", (diag, (B, n1, V, V)),
+    sfx = cuda_lib.check_args(name, (diag, (B, n1, V, V)),
                               (off, (B, n1 - 1, V, V)))
     if V > 32:
-        raise ValueError(f"tridiag_factor: V={V} > 32")
+        raise ValueError(f"{name}: V={V} > 32")
+    return sfx, (B, n1, V)
+
+
+def factor_batched(diag: torch.Tensor, off: torch.Tensor) -> TridiagFactor:
+    """Pre-inverted blocked Cholesky factor of every scenario's M: one
+    call, two launches (the chain, then the couplings)."""
+    if diag.device.type == "cpu":
+        return factor_plain(diag, off)
+    sfx, dims = _factor_args("tridiag_factor", diag, off)
     cinv = torch.empty_like(diag)
     pfwd = torch.empty_like(off)
     pbwd = torch.empty_like(off)
     cuda_lib.launch("cmpc_tridiag_factor", sfx, diag.device, diag, off,
-                    cinv, pfwd, pbwd, B, n1, V)
+                    cinv, pfwd, pbwd, *dims)
     launches["tridiag_factor"] += 1
     return TridiagFactor(Cinv=cinv, Pfwd=pfwd, Pbwd=pbwd)
+
+
+def factor_chain(diag: torch.Tensor,
+                 off: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The factor's first launch alone: (Cinv, W) as `factor_chain_plain`
+    gives them."""
+    if diag.device.type == "cpu":
+        return factor_chain_plain(diag, off)
+    sfx, dims = _factor_args("tridiag_factor_chain", diag, off)
+    cinv = torch.empty_like(diag)
+    w = torch.empty_like(off)
+    cuda_lib.launch("cmpc_tridiag_factor_chain", sfx, diag.device, diag, off,
+                    cinv, w, *dims)
+    return cinv, w
+
+
+def factor_couple(cinv: torch.Tensor,
+                  w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The factor's second launch alone: (Pfwd, Pbwd) from the chain's
+    output.  On the card Pfwd is written in place over `w` (the tensor
+    returned is `w`); the plain version on a CPU tensor leaves `w` as it
+    is."""
+    if cinv.device.type == "cpu":
+        return factor_couple_plain(cinv, w)
+    sfx, dims = _factor_args("tridiag_factor_couple", cinv, w)
+    pbwd = torch.empty_like(w)
+    cuda_lib.launch("cmpc_tridiag_factor_couple", sfx, cinv.device, cinv, w,
+                    pbwd, *dims)
+    return w, pbwd
 
 
 def _sweep(kernel: str, mats: tuple, rhs: torch.Tensor) -> torch.Tensor:
@@ -187,3 +244,28 @@ def factor_cost(B: int, n1: int, V: int, itemsize: int = 4) -> cuda_lib.Cost:
         bytes=B * (2 * n1 * tri + 3 * n * V * V) * itemsize,
         flops=B * (n1 * 2 * V ** 3 // 3 + n * (4 * V * V * (V + 1) + tri)),
         layout_bytes=B * (2 * n1 + 3 * n) * V * V * itemsize)
+
+
+def factor_chain_cost(B: int, n1: int, V: int,
+                      itemsize: int = 4) -> cuda_lib.Cost:
+    """Work of the factor's first launch: the diagonal blocks (symmetric)
+    and the coupling blocks in; Cinv (lower triangular) and W out.  Per
+    knot the Cholesky and triangular inverse, per coupled knot W = O C^-T
+    and the lower triangle of D - W W' (factor_cost's terms)."""
+    n, tri = n1 - 1, cuda_lib.tri(V)
+    return cuda_lib.Cost(
+        bytes=B * (2 * n1 * tri + 2 * n * V * V) * itemsize,
+        flops=B * (n1 * 2 * V ** 3 // 3 + n * (2 * V * V * (V + 1) + tri)),
+        layout_bytes=B * 2 * (n1 + n) * V * V * itemsize)
+
+
+def factor_couple_cost(B: int, n1: int, V: int,
+                       itemsize: int = 4) -> cuda_lib.Cost:
+    """Work of the factor's second launch: Cinv (lower triangular) and W
+    in; Pfwd and Pbwd out; per coupled knot two products with a
+    triangular factor."""
+    n, tri = n1 - 1, cuda_lib.tri(V)
+    return cuda_lib.Cost(
+        bytes=B * (n1 * tri + 3 * n * V * V) * itemsize,
+        flops=B * n * 2 * V * V * (V + 1),
+        layout_bytes=B * (n1 + 3 * n) * V * V * itemsize)

@@ -31,6 +31,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # cudaError_t of its launch.
 _SIGNATURES = {
     "cmpc_tridiag_factor": [_P] * 5 + [_I] * 3 + [_P],
+    "cmpc_tridiag_factor_chain": [_P] * 4 + [_I] * 3 + [_P],
+    "cmpc_tridiag_factor_couple": [_P] * 3 + [_I] * 3 + [_P],
     "cmpc_tridiag_fwd": [_P] * 4 + [_I] * 3 + [_P],
     "cmpc_tridiag_bwd": [_P] * 4 + [_I] * 3 + [_P],
     "cmpc_dare_lqr": [_P] * 5 + [_I] * 4 + [_P],

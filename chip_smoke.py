@@ -10,7 +10,8 @@ Phases (each raises on failure, so the script exits non-zero):
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the small bench shape, the main path's shapes, a horizon that
      wraps the sweeps' ring (N=165) and a batch of more than one wave
-     (B=300); CUDA-event times of both, warm and with L2 flushed, beside
+     (B=300); the factor's two launches (chain, couplings) also each
+     alone; CUDA-event times of both, warm and with L2 flushed, beside
      the bound computed from the bytes and operations of the launch;
   4. the slice: 128 solo12_trot_n50 SCP problems in float32 through
      parallel.batch.batched_solve (block backend, frozen linearization,
@@ -88,6 +89,14 @@ SOURCES = {
     "tridiag_fwd": "centroidal_mpc_tpu_torch/csrc/block_tridiag.cu",
     "tridiag_bwd": "centroidal_mpc_tpu_torch/csrc/block_tridiag.cu",
     "dare_lqr": "centroidal_mpc_tpu_torch/csrc/dare_lqr.cu",
+}
+# device kernel names of each row: the factor is two launches a call
+DEVICE_KERNELS = {
+    "tridiag_factor": ("tridiag_factor_chain_kernel",
+                       "tridiag_factor_couple_kernel"),
+    "tridiag_fwd": ("tridiag_fwd_kernel",),
+    "tridiag_bwd": ("tridiag_bwd_kernel",),
+    "dare_lqr": ("dare_lqr_kernel",),
 }
 
 
@@ -261,12 +270,41 @@ def phase_kernels():
         check(rel_err(wk, wp) < KERNEL_RTOL, "backward sweep disagrees")
         check(solve_err < KERNEL_RTOL, f"solve rel err {solve_err}")
         check(resid < KERNEL_RTOL, f"residual {resid}")
+        # each half of the factor alone, against its plain version on the
+        # same inputs; the couplings write Pfwd over W, so they get a copy
+        ck, cw = bt.factor_chain(diag, off)
+        chain_err = max(rel_err(x, y) for x, y in
+                        zip((ck, cw), bt.factor_chain_plain(diag, off)))
+        w_in = cw.clone()
+        couple_err = max(rel_err(x, y) for x, y in
+                         zip(bt.factor_couple(ck, w_in),
+                             bt.factor_couple_plain(ck, cw)))
+        torch.cuda.synchronize()
+        print(f"# factor halves B={b} N={n} V={v}: chain rel "
+              f"{chain_err:.2e}, couple rel {couple_err:.2e}")
+        check(chain_err < KERNEL_RTOL, f"factor chain rel err {chain_err}")
+        check(couple_err < KERNEL_RTOL, f"factor couple rel err {couple_err}")
         if b == BATCH:   # main-path shape: record errors and times
             results["tridiag_factor"] = dict(
                 max_abs_err=f_abs,
                 **timings(lambda: bt.factor_batched(diag, off),
                           lambda: bt.factor_plain(diag, off),
                           bt.factor_cost(b, n + 1, v)))
+            # the couplings' repeats run in place over w_in: their time
+            # does not depend on the values there
+            for half, fn, plain, cost in (
+                    ("chain", lambda: bt.factor_chain(diag, off),
+                     lambda: bt.factor_chain_plain(diag, off),
+                     bt.factor_chain_cost(b, n + 1, v)),
+                    ("couple", lambda: bt.factor_couple(ck, w_in),
+                     lambda: bt.factor_couple_plain(ck, cw),
+                     bt.factor_couple_cost(b, n + 1, v))):
+                r = timings(fn, plain, cost)
+                print(f"# time tridiag_factor {half}: kernel {r['ms']:.4f} "
+                      f"ms warm, {r['cold_ms']:.4f} ms cold, plain "
+                      f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                      f"({r['bound_by']}; {r['layout_bound_ms']:.4f} ms for "
+                      f"the bytes of the whole tensors)")
             results["tridiag_fwd"] = dict(
                 max_abs_err=float((vk - vp).abs().max()),
                 **timings(lambda: bt.forward_sweep(fk, rhs),
@@ -377,18 +415,20 @@ def phase_slice(card):
 def phase_profile(solve):
     """One more main-path batch under torch.profiler: device time by
     kernel name and the device's busy share of the batch's CUDA-event
-    time.  Returns each of the port's kernels' mean device ms per launch
-    in the path."""
+    time.  Returns each of the port's kernels' mean device ms per wrapper
+    call in the path (the factor's two launches summed)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start.record()
         solve()
         end.record()
         torch.cuda.synchronize()
+    calls = launch_counts()
     batch_ms = start.elapsed_time(end)
     per_name = {}
     for ev in prof.events():
@@ -402,11 +442,17 @@ def phase_profile(solve):
     check(busy_ms > 0, "the profiler saw no device time")
     in_path = {}
     for name in REPLACES:
-        hits = [v for k, v in per_name.items() if name + "_kernel" in k]
-        us, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
-        in_path[name] = us / 1e3 / max(n, 1)
-        print(f"#   {name}: {n} launches, {us / 1e3:.3f} ms in the batch "
-              f"({in_path[name]:.4f} ms per launch, "
+        us = 0.0
+        for kernel in DEVICE_KERNELS[name]:
+            hits = [v for k, v in per_name.items() if kernel in k]
+            k_us, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+            check(n > 0, f"the profiler saw no {kernel} in the batch")
+            print(f"#   {kernel}: {n} launches, {k_us / 1e3:.3f} ms in the "
+                  f"batch ({k_us / 1e3 / n:.4f} ms per launch)")
+            us += k_us
+        in_path[name] = us / 1e3 / max(calls[name], 1)
+        print(f"#   {name}: {calls[name]} calls, {us / 1e3:.3f} ms in the "
+              f"batch ({in_path[name]:.4f} ms per call, "
               f"{us / 1e3 / busy_ms:.1%} of busy time)")
     for k, (us, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"#   top: {us / 1e3:8.3f} ms {n:6d}x {k[:90]}")

@@ -52,6 +52,35 @@ def test_tridiag_plain_matches_pallas(b, n, v):
     np.testing.assert_allclose(mw.numpy(), rhs, rtol=1e-9, atol=1e-9)
 
 
+@pytest.mark.parametrize("v", [22, 16])
+def test_factor_halves_match_pallas(v):
+    """Each half of the factor against pallas factor_batched (interpret
+    mode) at B=3, N=8, f64, rtol = atol = 1e-9: two f64 Cholesky variants
+    that take their sums in another order.  The chain's Cinv is the
+    kernel's C^{-1} and its W is O_{k-1} C_{k-1}^{-T}; the couplings from
+    (Cinv, W) are the kernel's Pfwd / Pbwd, whose slot k (slot 0 zero)
+    holds the knot that the port's slot k-1 holds."""
+    b, n = 3, 8
+    diag, off, _ = _spd_system(b, n, v, seed=v)
+    kfac = pbq.factor_batched(diag, off, interpret=True)
+
+    def batch_major(a):   # (N+1, V8, V8, Bp) -> (B, N+1, V, V)
+        return np.transpose(np.asarray(a), (3, 0, 1, 2))[:b, :, :v, :v]
+
+    tol = dict(rtol=1e-9, atol=1e-9)
+    cinv, w = bt.factor_chain_plain(torch.as_tensor(diag),
+                                    torch.as_tensor(off))
+    cinv_ref = batch_major(kfac.Cinv)
+    np.testing.assert_allclose(cinv.numpy(), cinv_ref, **tol)
+    np.testing.assert_allclose(
+        w.numpy(), off @ np.swapaxes(cinv_ref[:, :-1], -1, -2), **tol)
+    pfwd, pbwd = bt.factor_couple_plain(cinv, w)
+    np.testing.assert_allclose(pfwd.numpy(), batch_major(kfac.Pfwd)[:, 1:],
+                               **tol)
+    np.testing.assert_allclose(pbwd.numpy(), batch_major(kfac.Pbwd)[:, 1:],
+                               **tol)
+
+
 def test_block_qp_data_path_matches_jax():
     """(f) build_block_qp, _ruiz, _assemble_blocks, _apply_A/_apply_AT,
     _residuals and _certificates equal the JAX package's vmapped

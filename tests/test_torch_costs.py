@@ -22,6 +22,41 @@ def test_costs_at_the_main_path_shape():
     assert (f64.bytes, f64.layout_bytes) == (2 * 20_145_664, 2 * 26_177_536)
 
 
+def test_factor_halves_at_the_main_path_shape():
+    """The factor's two launches at B=128, N=50, V=22, float32: their
+    operations add up to the factor's, and their bytes exceed its bytes
+    (W goes out of the chain and comes back into the couplings)."""
+    chain = bt.factor_chain_cost(128, 51, 22)
+    couple = bt.factor_couple_cost(128, 51, 22)
+    assert chain == (37_993_472, 190_448_896, 50_057_216)
+    assert couple == (43_777_536, 142_489_600, 49_809_408)
+    whole = bt.factor_cost(128, 51, 22)
+    assert chain.flops + couple.flops == whole.flops
+    assert chain.bytes + couple.bytes >= whole.bytes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,n,v", [(3, 4, 7), (2, 0, 9)])
+def test_factor_half_bytes_are_their_tensors(dtype, b, n, v):
+    """Each half's layout bytes are the nbytes of its inputs and outputs;
+    its counted bytes leave out the upper triangles of the diagonal blocks
+    and of Cinv."""
+    g = torch.Generator().manual_seed(1)
+    r = torch.randn(b, n + 1, v, v, generator=g, dtype=dtype)
+    diag = r @ r.mT + v * torch.eye(v, dtype=dtype)
+    off = 0.1 * torch.randn(b, n, v, v, generator=g, dtype=dtype)
+    size = dtype.itemsize
+    cinv, w = bt.factor_chain_plain(diag, off)
+    pfwd, pbwd = bt.factor_couple_plain(cinv, w)
+    upper = b * (n + 1) * v * (v - 1) // 2 * size
+    cost = bt.factor_chain_cost(b, n + 1, v, size)
+    assert cost.layout_bytes == sum(t.nbytes for t in (diag, off, cinv, w))
+    assert cost.bytes == cost.layout_bytes - 2 * upper
+    cost = bt.factor_couple_cost(b, n + 1, v, size)
+    assert cost.layout_bytes == sum(t.nbytes for t in (cinv, w, pfwd, pbwd))
+    assert cost.bytes == cost.layout_bytes - upper
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("b,n,v", [(3, 4, 7), (2, 0, 9)])
 def test_bytes_are_the_tensors_of_one_launch(dtype, b, n, v):

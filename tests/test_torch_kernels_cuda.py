@@ -44,11 +44,13 @@ def _rel(a, b):
 # path's; (4, 165, 22) wraps the sweeps' ring of stages five times and
 # (300, 50, 22) takes more than one wave of the 132 SMs; odd V copies by
 # cp.async instead of TMA, V other than 22 runs the generic sweep, and N=0
-# has no coupling block
+# has no coupling block (the factor then skips its second launch)
+SHAPES = [(5, 7, 22), (3, 1, 13), (2, 0, 9), (32, 8, 22), (128, 50, 22),
+          (4, 165, 22), (300, 50, 22), (3, 20, 31), (6, 30, 16)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("b,n,v", [(5, 7, 22), (3, 1, 13), (2, 0, 9),
-                                   (32, 8, 22), (128, 50, 22), (4, 165, 22),
-                                   (300, 50, 22), (3, 20, 31), (6, 30, 16)])
+@pytest.mark.parametrize("b,n,v", SHAPES)
 def test_tridiag_kernels_match_plain(cuda, dtype, b, n, v):
     diag, off, rhs = _system(b, n, v, dtype, cuda)
     counts = dict(bt.launches)
@@ -65,6 +67,43 @@ def test_tridiag_kernels_match_plain(cuda, dtype, b, n, v):
     assert bt.launches["tridiag_factor"] == counts["tridiag_factor"] + 1
     assert bt.launches["tridiag_fwd"] == counts["tridiag_fwd"] + 1
     assert bt.launches["tridiag_bwd"] == counts["tridiag_bwd"] + 1
+
+
+def _assert_close(pairs, dtype):
+    for x, y in pairs:
+        assert x.shape == y.shape
+        if y.numel():
+            assert _rel(x, y) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,n,v", SHAPES)
+def test_factor_halves_match_plain(cuda, dtype, b, n, v):
+    """The chain (Cinv, W) and the couplings (Pfwd, Pbwd) each against
+    their plain version on the same inputs; the couplings write Pfwd over
+    W in place."""
+    diag, off, _ = _system(b, n, v, dtype, cuda)
+    cinv, w = bt.factor_chain(diag, off)
+    _assert_close(zip((cinv, w), bt.factor_chain_plain(diag, off)), dtype)
+    ref = bt.factor_couple_plain(cinv, w)
+    w_in = w.clone()
+    pfwd, pbwd = bt.factor_couple(cinv, w_in)
+    assert pfwd.data_ptr() == w_in.data_ptr()
+    _assert_close(zip((pfwd, pbwd), ref), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_factor_chain_takes_misaligned_inputs(cuda, dtype):
+    """diag and off one element past a 16-byte boundary: the chain copies
+    them one element at a time (cp.async of 4 or 8 bytes)."""
+    diag, off, _ = _system(3, 6, 22, dtype, cuda)
+    odd = [_one_element_in(t) for t in (diag, off)]
+    assert all(t.data_ptr() % 16 for t in odd)
+    _assert_close(zip(bt.factor_chain(*odd),
+                      bt.factor_chain_plain(diag, off)), dtype)
+    _assert_close(zip(bt.factor_batched(*odd), bt.factor_plain(diag, off)),
+                  dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
