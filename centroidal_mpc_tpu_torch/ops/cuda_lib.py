@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources in `centroidal_mpc_tpu_torch/csrc/*.cu` are compiled by `nvcc`
-for Hopper (`sm_90a`) into one shared library with a plain C interface,
-loaded with `ctypes`.  The library is built at first use into
+for Hopper (`sm_90a`), one `nvcc` per source, all started together, and
+linked into one shared library with a plain C interface, loaded with
+`ctypes`.  The library is built at first use into
 `build/torch_kernels/<source hash>/` at the repository root (listed in
 `.gitignore`), so a fresh checkout builds it from its own sources and a
 changed source gets a new build.  Nothing here runs at import time.
@@ -23,8 +24,9 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[2] / "build"
               / "torch_kernels")
 LIB_NAME = "libcmpc_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points (each exists as _f32 and _f64); every one returns the
@@ -84,25 +86,45 @@ def library_path() -> pathlib.Path:
     return BUILD_ROOT / source_hash() / LIB_NAME
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; the log of each (its command line and its
+    output), or raise with the first failure's errors."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [" ".join(c) + "\n" + p.communicate()[0]
+            for c, p in zip(cmds, procs)]
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{log[-4000:]}")
+    return logs
+
+
 def build() -> tuple[pathlib.Path, float]:
     """Compile the library if it is not built yet.  Returns its path and
     the seconds spent compiling (0.0 when it was already built).  The
-    compiler's output (ptxas register and shared-memory report) is kept
-    in `build.log` beside the library."""
+    compiler's output (ptxas register, spill and shared-memory report) is
+    kept in `build.log` beside the library."""
     path = library_path()
     if path.exists():
         return path, 0.0
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    pid = os.getpid()
+    tmp = path.with_name(f"{LIB_NAME}.{pid}.tmp")
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [str(path.with_name(f"{src.stem}.{pid}.o")) for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                         for src, obj in zip(srcs, objs)])
+        logs += _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp), *objs]])
+    finally:
+        for obj in objs:
+            pathlib.Path(obj).unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    (path.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    (path.parent / "build.log").write_text("".join(logs))
     os.replace(tmp, path)   # atomic: a concurrent loader sees all or none
     return path, seconds
 

@@ -4,13 +4,15 @@ Counterpart of `centroidal_mpc_tpu/ops/pallas_lqr.py`.  The CUDA kernel
 `dare_lqr` (`csrc/dare_lqr.cu`) replaces its `pl.pallas_call`
 (pallas_lqr.py:114, `_dare_kernel`): for S independent (A_s, B_s) pairs
 with shared Q and R, n_iter steps of P <- Q + A'PA - A'PB H^-1 B'PA,
-H = R + B'PB, then K = -H^-1 B'PA, with H^-1 from a Cholesky factor.
+H = R + B'PB, then K = -H^-1 B'PA.  The kernel never forms H^-1: with
+H = L L' it takes Y = L^-1 B'PA by forward substitution, P <- Q + A'PA -
+Y'Y, and K = -L^-T Y by back substitution.
 
-The plain PyTorch version below runs the same math (Cholesky inverse, not
-the JAX package's f64 Newton-Schulz chain).  On a CPU tensor the wrapper
-runs it; on a CUDA tensor it launches the kernel or raises.  `launches`
-counts kernel launches.  What bounds the kernel on an H100 and how it is
-laid out is written at the top of the CUDA source.
+The plain PyTorch version below runs the same function through a
+Cholesky inverse (not the JAX package's f64 Newton-Schulz chain).  On a
+CPU tensor the wrapper runs it; on a CUDA tensor it launches the kernel
+or raises.  `launches` counts kernel launches.  What bounds the kernel on
+an H100 and how it is laid out is written at the top of the CUDA source.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from centroidal_mpc_tpu_torch.ops import cuda_lib
 
 launches = {"dare_lqr": 0}
 
-MAX_DIM = 16   # nx, nu bound of the kernel's shared-memory tiles
+MAX_DIM = 16   # nx, nu bound: the kernel's generic width
 
 
 def lqr_gain_plain(Q: torch.Tensor, R: torch.Tensor, A: torch.Tensor,
@@ -44,25 +46,26 @@ def lqr_gain_plain(Q: torch.Tensor, R: torch.Tensor, A: torch.Tensor,
 
 def lqr_cost(S: int, nx: int, nu: int, n_iter: int = 2,
              itemsize: int = 4) -> cuda_lib.Cost:
-    """Work of one launch (for bounds): A, B and the symmetric Q, R in, K
-    out.  Per step B'P, the symmetric H = R + B'P B, its Cholesky factor
-    L, L^-1 and the symmetric H^-1 = L^-T L^-1 (nu^3/3 each), and B'PA;
-    per update the symmetric Q + (A'P) A, (B'PA)' H^-1 and the symmetric
-    P - (B'PA)' H^-1 B'PA; then K = -H^-1 B'PA.  A symmetric result
-    counts its lower triangle only."""
+    """Work of one launch (for bounds) in the substitution form, which
+    forms no H^-1: A, B and the symmetric Q, R in, K out.  Per gain step
+    B'P, the symmetric H = R + B'P B, its Cholesky factor L (nu^3/3),
+    B'PA and Y = L^-1 B'PA (nu^2 nx); per update the symmetric
+    Q + (A'P) A and the symmetric P - Y'Y; then K = -L^-T Y by back
+    substitution (nu^2 nx).  A symmetric result counts its lower triangle
+    only."""
     t = cuda_lib.tri
     gains = (2 * nu * nx * nx              # B'P
              + 2 * t(nu) * nx + t(nu)      # H = R + B'P B
-             + nu ** 3                     # Cholesky, L^-1, L^-T L^-1
-             + 2 * nu * nx * nx)           # B'PA
+             + nu ** 3 // 3                # Cholesky
+             + 2 * nu * nx * nx            # B'PA
+             + nu * nu * nx)               # Y = L^-1 B'PA
     update = (2 * nx ** 3 + 2 * t(nx) * nx + t(nx)  # Q + (A'P) A
-              + 2 * nx * nu * nu                    # (B'PA)' H^-1
-              + 2 * t(nx) * nu + t(nx))             # P - (.) B'PA
+              + 2 * t(nx) * nu + t(nx))             # P - Y'Y
     pairs = S * (nx * nx + 2 * nx * nu)    # A, B in and K out
     return cuda_lib.Cost(
         bytes=(pairs + t(nx) + t(nu)) * itemsize,
         flops=S * ((n_iter + 1) * gains + n_iter * update
-                   + 2 * nu * nu * nx),
+                   + nu * nu * nx),
         layout_bytes=(pairs + nx * nx + nu * nu) * itemsize)
 
 

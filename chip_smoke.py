@@ -11,8 +11,11 @@ Phases (each raises on failure, so the script exits non-zero):
      at the small bench shape, the main path's shapes, a horizon that
      wraps the sweeps' ring (N=165) and a batch of more than one wave
      (B=300); the factor's two launches (chain, couplings) also each
-     alone; CUDA-event times of both, warm and with L2 flushed, beside
-     the bound computed from the bytes and operations of the launch;
+     alone; the DARE gains on the real linearizations of solo12_trot_n50
+     (nu 12) and bolt_pace (nu 6) over 128 scenarios, at 2 steps (the
+     main path's) and 30 (the stochastic stage's); CUDA-event times of
+     kernel and plain version, warm and with L2 flushed, beside the bound
+     computed from the bytes and operations of the launch;
   4. the slice: 128 solo12_trot_n50 SCP problems in float32 through
      parallel.batch.batched_solve (block backend, frozen linearization,
      power-iteration trust norm, fixed-rho block ADMM with its refinement
@@ -55,6 +58,9 @@ PARITY_BAR = 1e-4       # u_err_inf / x_err_inf vs the f64 reference
 # kernel-vs-plain shapes (B, N, V): the bench's kernel_exact shape, the
 # main path's, a horizon that wraps the sweeps' ring, more than one wave
 KERNEL_SHAPES = [(32, 8, 22), (BATCH, 50, 22), (4, 165, 22), (300, 50, 22)]
+# DARE steps: the main path's, then the stochastic stage's
+# (centroidal_mpc_tpu/pipeline.py:55, stochastic_lqr_iters)
+DARE_ITERS = (2, 30)
 # published H100 SXM peaks at 700 W (NVIDIA's data sheet): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -214,7 +220,7 @@ def phase_build():
     print(f"# build: {seconds:.1f} s -> {os.path.relpath(path, ROOT)}")
     log = (path.parent / "build.log").read_text()
     for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "Compiling entry", "spill")):
             print("#   " + line.strip())
 
 
@@ -316,29 +322,7 @@ def phase_kernels():
                           lambda: bt.backward_sweep_plain(fk, vk),
                           bt.sweep_cost(b, n + 1, v)))
 
-    # DARE gains on the real solo12_trot_n50 linearization, 128 scenarios
-    prob = presets.build_problem(presets.SOLO12_TROT_N50,
-                                 dtype=torch.float32, device="cuda")
-    X0, U0, _ = scenarios(prob)
-    sched = prob.plan.schedule
-    pos = sched.positions_flat().reshape(sched.horizon, sched.n_contacts, 3)
-    _, A, Bm, _ = linearize_step(prob.model, X0[:, :-1], U0, pos,
-                                 sched.logic, sched.orientation)
-    A = A.reshape(-1, 9, 9).contiguous()
-    Bm = Bm.reshape(-1, 9, prob.model.n_u).contiguous()
-    Q, R = prob.model.Q, prob.model.R
-    Kk = lqr_kernel.lqr_gain_batched(Q, R, A, Bm, 2)
-    Kp = lqr_kernel.lqr_gain_plain(Q, R, A, Bm, 2)
-    torch.cuda.synchronize()
-    k_err = rel_err(Kk, Kp)
-    print(f"# dare_lqr S={A.shape[0]}: |K - K_plain|inf / |K_plain|inf "
-          f"{k_err:.2e}")
-    check(k_err < KERNEL_RTOL, f"dare_lqr rel err {k_err}")
-    results["dare_lqr"] = dict(
-        max_abs_err=float((Kk - Kp).abs().max()),
-        **timings(lambda: lqr_kernel.lqr_gain_batched(Q, R, A, Bm, 2),
-                  lambda: lqr_kernel.lqr_gain_plain(Q, R, A, Bm, 2),
-                  lqr_kernel.lqr_cost(A.shape[0], 9, prob.model.n_u, 2)))
+    results["dare_lqr"] = phase_dare()
     for name, r in results.items():
         print(f"# time {name}: kernel {r['ms']:.4f} ms warm, "
               f"{r['cold_ms']:.4f} ms cold, plain {r['plain_ms']:.4f} ms, "
@@ -346,6 +330,57 @@ def phase_kernels():
               f"{r['layout_bound_ms']:.4f} ms for the bytes of the whole "
               f"tensors)")
     return results
+
+
+def dare_inputs(preset):
+    """Q, R and the (A, B) pairs of a preset's real linearization at the
+    BATCH scenarios' warm starts, f32 on the card: S = BATCH * N."""
+    prob = presets.build_problem(preset, dtype=torch.float32, device="cuda")
+    X0, U0, _ = scenarios(prob)
+    sched = prob.plan.schedule
+    pos = sched.positions_flat().reshape(sched.horizon, sched.n_contacts, 3)
+    _, A, Bm, _ = linearize_step(prob.model, X0[:, :-1], U0, pos,
+                                 sched.logic, sched.orientation)
+    nu = prob.model.n_u
+    return (prob.model.Q, prob.model.R, A.reshape(-1, 9, 9).contiguous(),
+            Bm.reshape(-1, 9, nu).contiguous())
+
+
+def phase_dare():
+    """dare_lqr against its plain version on solo12_trot_n50 (nu 12) and
+    bolt_pace (nu 6) at DARE_ITERS steps; timed on solo12 at both."""
+    inputs = {p.name: dare_inputs(p)
+              for p in (presets.SOLO12_TROT_N50, presets.BOLT_PACE)}
+    max_abs = None
+    for name, args in inputs.items():
+        for n_iter in DARE_ITERS:
+            Kk = lqr_kernel.lqr_gain_batched(*args, n_iter)
+            Kp = lqr_kernel.lqr_gain_plain(*args, n_iter)
+            torch.cuda.synchronize()
+            k_err = rel_err(Kk, Kp)
+            print(f"# dare_lqr {name} S={args[2].shape[0]} nu="
+                  f"{args[3].shape[-1]} n_iter={n_iter}: |K - K_plain|inf "
+                  f"/ |K_plain|inf {k_err:.2e}")
+            check(k_err < KERNEL_RTOL, f"dare_lqr {name} n_iter={n_iter} "
+                                       f"rel err {k_err}")
+            if max_abs is None:   # the main path's: solo12, 2 steps
+                max_abs = float((Kk - Kp).abs().max())
+    Q, R, A, Bm = inputs[presets.SOLO12_TROT_N50.name]
+    S, nu = A.shape[0], Bm.shape[-1]
+    runs = {n_iter: timings(
+        lambda: lqr_kernel.lqr_gain_batched(Q, R, A, Bm, n_iter),
+        lambda: lqr_kernel.lqr_gain_plain(Q, R, A, Bm, n_iter),
+        lqr_kernel.lqr_cost(S, 9, nu, n_iter)) for n_iter in DARE_ITERS}
+    r = runs[DARE_ITERS[-1]]
+    print(f"# time dare_lqr n_iter={DARE_ITERS[-1]}: kernel {r['ms']:.4f} ms "
+          f"warm, {r['cold_ms']:.4f} ms cold, plain {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); share of bound "
+          f"{r['bound_ms'] / r['cold_ms']:.1%} cold, "
+          f"{r['bound_ms'] / r['ms']:.1%} warm")
+    tag = f"_n_iter{DARE_ITERS[-1]}"
+    return dict(max_abs_err=max_abs, **runs[DARE_ITERS[0]],
+                **{k + tag: r[k] for k in ("ms", "cold_ms", "plain_ms",
+                                           "bound_ms")})
 
 
 def scenarios(prob):

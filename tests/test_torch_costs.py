@@ -11,13 +11,17 @@ from centroidal_mpc_tpu_torch.ops import lqr_kernel
 
 def test_costs_at_the_main_path_shape():
     """B=128 scenarios, N=50 (51 knots), V=22, float32; the DARE on the
-    128 x 50 (A, B) pairs of solo12 (nx 9, nu 12) with 2 iterations.
+    128 x 50 (A, B) pairs of solo12 (nx 9, nu 12) with 2 iterations, and
+    with the stochastic stage's 30 (substitution form, no H^-1).
     (bytes, flops, layout bytes)."""
     assert bt.sweep_cost(128, 51, 22) == (20_145_664, 9_639_168, 26_177_536)
     assert bt.factor_cost(128, 51, 22) == (50_383_872, 332_938_496,
                                            62_447_616)
-    assert lqr_kernel.lqr_cost(6400, 9, 12, 2) == (7_603_692, 230_054_400,
+    assert lqr_kernel.lqr_cost(6400, 9, 12, 2) == (7_603_692, 191_347_200,
                                                    7_604_100)
+    assert lqr_kernel.lqr_cost(6400, 9, 12, 30) == (7_603_692,
+                                                    2_105_203_200,
+                                                    7_604_100)
     f64 = bt.sweep_cost(128, 51, 22, itemsize=8)
     assert (f64.bytes, f64.layout_bytes) == (2 * 20_145_664, 2 * 26_177_536)
 

@@ -106,18 +106,52 @@ def test_factor_chain_takes_misaligned_inputs(cuda, dtype):
                   dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_dare_kernel_matches_plain(cuda, dtype):
-    rng = np.random.default_rng(1)
-    S, nx, nu = 37, 9, 12
-    A = np.eye(nx) + 0.05 * rng.standard_normal((S, nx, nx))
+def _dare_inputs(S, nx, nu, dtype, device, seed=1):
+    """Random systems near the real linearizations (A = I + dt J): with
+    A = I + 0.05 N(0,1) the 30-step recursion grows a rounding difference
+    by the unstable closed loop's rho^60, and an f32 comparison then
+    measures the input's conditioning, not the kernel."""
+    rng = np.random.default_rng(seed)
+    A = np.eye(nx) + 0.02 * rng.standard_normal((S, nx, nx))
     B = 0.05 * rng.standard_normal((S, nx, nu))
     Q = np.diag(rng.uniform(1e3, 1e4, nx))
     R = np.diag(rng.uniform(1e1, 1e3, nu))
-    t = [torch.as_tensor(a, dtype=dtype, device=cuda) for a in (Q, R, A, B)]
-    for n_iter in (0, 2):
-        K = lqr_kernel.lqr_gain_batched(*t, n_iter=n_iter)
-        assert _rel(K, lqr_kernel.lqr_gain_plain(*t, n_iter)) < TOL[dtype]
+    return [torch.as_tensor(a, dtype=dtype, device=device)
+            for a in (Q, R, A, B)]
+
+
+# (S, nx, nu, n_iter): solo12's (9, 12) at 0, the main path's 2 and the
+# stochastic stage's 30 steps, and at the main path's S = 6,400; bolt's
+# (9, 6); S = 1 and 3 leave the last warp's second problem empty; (7, 10)
+# and (16, 16) run the generic width
+DARE_CASES = [(37, 9, 12, 0), (37, 9, 12, 2), (37, 9, 12, 30),
+              (6400, 9, 12, 2), (41, 9, 6, 2), (41, 9, 6, 30),
+              (1, 9, 12, 2), (3, 9, 6, 2), (5, 7, 10, 2), (3, 16, 16, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S,nx,nu,n_iter", DARE_CASES)
+def test_dare_kernel_matches_plain(cuda, dtype, S, nx, nu, n_iter):
+    t = _dare_inputs(S, nx, nu, dtype, cuda)
+    count = lqr_kernel.launches["dare_lqr"]
+    K = lqr_kernel.lqr_gain_batched(*t, n_iter=n_iter)
+    torch.cuda.synchronize()
+    assert lqr_kernel.launches["dare_lqr"] == count + 1
+    assert K.shape == (S, nu, nx)
+    assert _rel(K, lqr_kernel.lqr_gain_plain(*t, n_iter)) < TOL[dtype]
+
+
+def test_dare_wrapper_raises_on_what_it_does_not_take(cuda):
+    Q, R, A, B = _dare_inputs(3, 9, 12, torch.float32, cuda)
+    count = lqr_kernel.launches["dare_lqr"]
+    with pytest.raises(ValueError, match="<= 16"):
+        lqr_kernel.lqr_gain_batched(*_dare_inputs(3, 9, 17, torch.float32,
+                                                  cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        lqr_kernel.lqr_gain_batched(Q, R, A.mT.contiguous().mT, B)
+    with pytest.raises(ValueError, match="share device"):
+        lqr_kernel.lqr_gain_batched(Q.cpu(), R, A, B)
+    assert lqr_kernel.launches["dare_lqr"] == count
 
 
 def test_wrappers_raise_on_what_they_do_not_take(cuda):

@@ -120,8 +120,8 @@ def test_compute_trajectory_data_matches_jax():
                                     torch.as_tensor(U))
 
 
-def _real_AB(dtype):
-    jprob = jpresets.build_problem(jpresets.SOLO12_TROT_N50, dtype=dtype)
+def _real_AB(dtype, name="solo12_trot_n50"):
+    jprob = jpresets.build_problem(jpresets.PRESETS[name], dtype=dtype)
     sched = jprob.plan.schedule
     _, A, B, _ = jax.vmap(jcm.linearize_step, in_axes=(None, 0, 0, 0, 0, 0))(
         jprob.model, jprob.X0[:-1], jprob.U0, sched.position, sched.logic,
@@ -147,16 +147,23 @@ def test_lqr_gain_plain_matches_pallas_kernel(dtype, rtol):
     assert np.abs(K.numpy() - K_ref).max() < rtol * scale
 
 
-def test_lqr_gain_matches_newton_schulz_chain():
+@pytest.mark.parametrize("name,n_iter", [
+    ("solo12_trot_n50", 2),    # the main path
+    ("bolt_pace", 2),          # nu = 6
+    ("solo12_trot_n50", 30)])  # the stochastic stage's steps
+def test_lqr_gain_matches_newton_schulz_chain(name, n_iter):
     """(d) The port's lqr_gain (Cholesky inverse) against the JAX f64
     lqr_gain (Newton-Schulz inverse, 6 steps, the f64 path of
     compute_trajectory_data): 1e-9 relative -- Newton-Schulz on these
-    cond ~1e2 matrices converges to round-off well within 6 steps."""
-    model, A, B = _real_AB(jnp.float64)
+    cond ~1e2 (solo12) and ~50 (bolt) matrices converges to round-off
+    well within 6 steps, and on the real linearization (A = I + dt J) the
+    30-step recursion keeps the two chains' round-off from growing."""
+    model, A, B = _real_AB(jnp.float64, name)
     K_ref = np.asarray(jax.vmap(jcm.lqr_gain, in_axes=(None, 0, 0, None))(
-        model, A, B, 2))
+        model, A, B, n_iter))
     tmodel = port_problem(jpresets.build_problem(
-        jpresets.SOLO12_TROT_N50, dtype=jnp.float64))[0]
-    K = tcm.lqr_gain(tmodel, torch.as_tensor(A), torch.as_tensor(B), 2)
+        jpresets.PRESETS[name], dtype=jnp.float64))[0]
+    K = tcm.lqr_gain(tmodel, torch.as_tensor(A), torch.as_tensor(B), n_iter)
+    assert K.shape == K_ref.shape
     scale = np.abs(K_ref).max()
     assert np.abs(K.numpy() - K_ref).max() < 1e-9 * scale
