@@ -24,6 +24,14 @@ at the bench operating point)::
     scp = dataclasses.replace(prob.scp, qp_backend="block",
                               norm_method="power")
     sol = batched_solve(prob.model, prob.plan.schedule, cfg, X0, U0, scp)
+
+The other modes of the block path take the same calls:
+``build_problem(..., stochastic=True)`` (chance constraints; the
+pipeline's stage runs ``dataclasses.replace(scp, lqr_iters=30)``),
+``build_problem(..., terrain=contact.terrain.DEBRIS_BY_GAIT["TROT"])``
+(footholds on tilted stones), ``QPSettings(adaptive_rho=True,
+adaptive_rho_mode="cond")``, and ``update_linearization=True`` in the
+ScpSettings (the talos preset's default).
 """
 
 __version__ = "0.1.0"

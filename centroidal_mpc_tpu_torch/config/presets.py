@@ -3,7 +3,7 @@
 Port of `centroidal_mpc_tpu/config/presets.py`: the same `ProblemPreset`
 table and a `build_problem` that expands a preset into tensors.  The
 problem is built in numpy on the host and moved to `device` once, at the
-end.  Stochastic problems and terrain are not ported yet.
+end.
 """
 from __future__ import annotations
 
@@ -81,13 +81,13 @@ def build_problem(preset: ProblemPreset, stochastic: bool = False,
     the analytic centroid warm start); U_warm (N, nu) the control warm
     start (default: the weight-distribution heuristic).  The problem goes
     to the card unless the caller passes device="cpu"; without a card
-    that default raises."""
+    that default raises.  stochastic=True builds the chance-constrained
+    problem (friction back-offs from the closed-loop covariance, quantile
+    `chance_quantile`); terrain (contact/terrain.Terrain) snaps footholds
+    onto its stepstones, with their rotated contact frames."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_problem: no CUDA device; pass device='cpu' "
                            "to build the problem on the CPU")
-    if stochastic:
-        raise NotImplementedError(
-            "stochastic problems are not ported yet")
     plan = build_contact_plan(preset.robot, preset.gait, preset.dt,
                               dtype=dtype, device="cpu", terrain=terrain)
     model = CentroidalModel.from_spec(

@@ -1,8 +1,8 @@
 """Contact-plan expansion: gait spec -> dense per-knot contact schedule.
 
-Port of `centroidal_mpc_tpu/contact/plan.py` (flat terrain only).  The
-schedule is built in numpy and handed over as tensors of one dtype on
-one device:
+Port of `centroidal_mpc_tpu/contact/plan.py`, with footholds snapped
+onto terrain (`contact/terrain.py`).  The schedule is built in numpy and
+handed over as tensors of one dtype on one device:
 
     logic:       (N, C)        1.0 where foot c is planted at knot k
     position:    (N, C, 3)     world-frame contact point (zeros when inactive)
@@ -85,10 +85,11 @@ def build_contact_plan(robot: RobotSpec, gait: GaitSpec, dt: float,
     """Expand a gait into phases and a dense contact schedule (same
     semantics as the JAX `build_contact_plan`: each phase lasts
     support_knots or step_knots, the named feet swing, and swung feet land
-    step_length ahead along +x; flat ground, identity contact frames)."""
-    if terrain is not None:
-        raise NotImplementedError(
-            "terrain is not ported yet (contact/terrain.py)")
+    step_length ahead along +x).  Flat ground gives identity contact
+    frames; with a `terrain` (contact/terrain.Terrain) every foothold is
+    snapped onto the highest covering surface, its z from the surface
+    plane and its contact frame from the surface rotation (the
+    reference's rotated-Debris pathway, src/contact_plan.py:8-37)."""
     if initial_foot_positions is None:
         foot_pos = robot.stance_positions_array().copy()
     else:
@@ -96,6 +97,15 @@ def build_contact_plan(robot: RobotSpec, gait: GaitSpec, dt: float,
     n_c = robot.n_contacts
     biped = n_c == 2
     foot_rot = np.tile(np.eye(3), (n_c, 1, 1))
+
+    def snap(c: int) -> None:
+        if terrain is not None:
+            z, r = terrain.surface_at(foot_pos[c, 0], foot_pos[c, 1])
+            foot_pos[c, 2] = z
+            foot_rot[c] = r
+
+    for c in range(n_c):
+        snap(c)
 
     phases: List[Phase] = []
     t_start = 0.0
@@ -112,6 +122,7 @@ def build_contact_plan(robot: RobotSpec, gait: GaitSpec, dt: float,
                             rotations=foot_rot.copy()))
         for c in swing:
             foot_pos[c, 0] += gait.step_length
+            snap(c)
         t_start = t_end
         knot += knots
 

@@ -178,24 +178,49 @@ def lqr_gain(model: CentroidalModel, A, B, n_iter: int = 2):
     return K.reshape(lead + (nu, nx))
 
 
+def propagate_covariance(model: CentroidalModel, A, B, C,
+                         K) -> torch.Tensor:
+    """Closed-loop covariance recursion over the horizon, a plain loop over
+    the knots (the JAX package runs it as a `lax.scan`, outside any
+    kernel):
+
+    Sigma_{k+1} = (A_k + B_k K_k) Sigma_k (A_k + B_k K_k)'
+                  + C_k cov_w C_k' + cov_eta
+
+    (the reference's [A B] Sigma_xu [A B]' form,
+    src/centroidal_model.py:234-238).  A (..., N, nx, nx), B (..., N, nx,
+    nu), C (..., N, nx, n_w), K (..., N, nu, nx) -> (..., N+1, nx, nx)
+    with Sigma_0 = 0 (the reference's zero-initialized Covs buffer,
+    :266)."""
+    acl = A + B @ K
+    noise = C @ model.cov_w @ C.mT
+    sigmas = [torch.zeros(A.shape[:-3] + (N_X, N_X), dtype=A.dtype,
+                          device=A.device)]
+    for k in range(A.shape[-3]):
+        a = acl[..., k, :, :]
+        sigmas.append(a @ sigmas[-1] @ a.mT + noise[..., k, :, :]
+                      + model.cov_eta)
+    return torch.stack(sigmas, dim=-3)
+
+
 def compute_trajectory_data(model: CentroidalModel,
                             schedule: ContactSchedule,
                             X: torch.Tensor, U: torch.Tensor,
                             lqr_iters: int = 2,
                             with_covariance: bool = True) -> TrajectoryData:
     """Linearize whole trajectories at once.  X (..., N+1, nx),
-    U (..., N, nu).  with_covariance=True (the stochastic mode's
-    covariance recursion) is not ported yet and raises."""
-    if with_covariance:
-        raise NotImplementedError(
-            "covariance propagation (stochastic mode) is not ported yet")
+    U (..., N, nu).  with_covariance=False skips the covariance recursion
+    (the nominal OCP never reads Sigma) and returns zeros for it."""
     n = schedule.horizon
     pos = schedule.positions_flat().reshape(n, schedule.n_contacts, 3)
     f, A, B, C = linearize_step(model, X[..., :-1, :], U, pos,
                                 schedule.logic, schedule.orientation)
     K = lqr_gain(model, A, B, lqr_iters)
-    Sigma = torch.zeros(X.shape[:-2] + (n + 1, N_X, N_X), dtype=A.dtype,
-                        device=A.device)
+    if with_covariance:
+        Sigma = propagate_covariance(model, A, B, C, K)
+    else:
+        Sigma = torch.zeros(X.shape[:-2] + (n + 1, N_X, N_X), dtype=A.dtype,
+                            device=A.device)
     return TrajectoryData(f=f, A=A, B=B, C=C, K=K, Sigma=Sigma)
 
 

@@ -33,8 +33,10 @@ class QPSettings:
     adaptive_rho_tol: float = 5.0
     # 'cond': refactor only when the prim/dual ratio leaves the deadband;
     # 'always': refactor at every residual check with the deadbanded rho.
-    # The port's block solver runs fixed rho and 'always'; 'cond' raises
-    # NotImplementedError.
+    # The port's block solver takes both names and runs one loop for
+    # them: a lane's rho moves only when it triggers, so refactoring it
+    # then ('cond') or at every check ('always') gives the same iterates.
+    # Each lane carries its own rho and factor.
     adaptive_rho_mode: str = "cond"
     eq_rho_scale: float = 1e3
     # Block-solver factorization.  'cholesky' and 'pallas' both run the

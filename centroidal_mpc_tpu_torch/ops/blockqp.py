@@ -1,7 +1,8 @@
 """Structure-exploiting ADMM QP solver on per-knot blocks, batch-first.
 
-Port of `centroidal_mpc_tpu/ops/blockqp.py` (the fixed / 'always'-rho
-path of `_admm_loop_batched` with its refinement polish).  The QP is the
+Port of `centroidal_mpc_tpu/ops/blockqp.py` (`build_block_qp` with the
+chance back-offs, and `_admm_loop_batched` with fixed or adaptive rho
+and its refinement polish).  The QP is the
 same OSQP-form problem: decision variables per knot W = (N+1, V) with
 V = nx + nu + 1 (state, control, trust slack; the control slot of knot N
 is a padded dummy), the constraint operator applied as batched einsums,
@@ -33,7 +34,7 @@ from centroidal_mpc_tpu_torch.ops.admm import (QPSettings, STATUS_MAX_ITER,
 from centroidal_mpc_tpu_torch.ops.block_tridiag import (factor_batched,
                                                         solve_batched)
 from centroidal_mpc_tpu_torch.solver.ocp import (DYN_SLACK, INF, OcpConfig,
-                                                 N_X,
+                                                 N_X, _chance_backoffs,
                                                  sign_enumeration_matrix)
 
 
@@ -92,10 +93,8 @@ def build_block_qp(model: CentroidalModel, schedule: ContactSchedule,
                    weight) -> BlockQP:
     """Assemble the block QP of every scenario.  cfg, X_prev (B, N+1, nx),
     U_prev (B, N, nu) and data carry the leading B axis; radius and
-    weight are scalars or (B,)."""
-    if cfg.stochastic:
-        raise NotImplementedError(
-            "chance-constraint back-offs are not ported yet")
+    weight are scalars or (B,).  A stochastic cfg lowers the friction
+    upper bounds by the chance back-offs of data.K and data.Sigma."""
     dtype, dev = X_prev.dtype, X_prev.device
     nb = X_prev.shape[0]
     nuc = model.n_u_per_contact
@@ -106,6 +105,8 @@ def build_block_qp(model: CentroidalModel, schedule: ContactSchedule,
         rot_pyr[..., 4, :] = 0.0
     N, C = rot_pyr.shape[1], rot_pyr.shape[2]
     fric_ub = torch.zeros((nb, N, C, 5), dtype=dtype, device=dev)
+    if cfg.stochastic:
+        fric_ub = fric_ub - _chance_backoffs(model, cfg, data, rot_pyr)
     zeros_cop = torch.zeros((nb, N, C, 2), dtype=dtype, device=dev)
     if nuc == 3:
         G = rot_pyr
@@ -656,15 +657,21 @@ def _polish(s: _Scaled, settings: QPSettings, sigma: float, w: WVars,
 
 def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
                        settings: QPSettings, nx: int, nu: int):
-    """Fixed/'always'-rho ADMM loop (+ optional polish) over the batch.
+    """Batch-first ADMM loop (+ optional polish): fixed rho, or adaptive
+    rho, where each lane carries its rho and its factorization across
+    segments and is refactored only when its residual ratio leaves the
+    deadband.  The JAX package's 'always' mode refactors every lane at
+    every segment, but a lane's rho only moves when it triggers and the
+    factor is a function of rho alone, so both modes give these iterates.
 
     Lanes that are done (converged, certified infeasible or stalled) or
     out of iterations are frozen: they run along but keep their state,
     the semantics a vmapped while_loop gives the per-scenario loop.  The
     loop ends when every lane is frozen.  Returns
-    (w, y, y_lo, it, prim, dual, status) with (B,) termination state;
-    y_lo is the low part of the polish's two-float dual (zeros where the
-    polish was not accepted).
+    (w, y, y_lo, it, prim, dual, status, rho, refactors) with (B,)
+    termination state; y_lo is the low part of the polish's two-float
+    dual (zeros where the polish was not accepted), rho each lane's final
+    step size and refactors its 'cond' refactorizations.
     """
     nb = s.sh.shape[0]
     dtype, dev = s.sh.dtype, s.sh.device
@@ -672,14 +679,20 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
     n_segments = -(-settings.max_iter // settings.check_interval)
     max_it = n_segments * settings.check_interval
 
-    def factor(rho_b):
-        rho_g = _rho_groups(settings, rho_b, s)
-        diag, off = _assemble_blocks(s, rho_g, sigma)
-        return rho_g, factor_batched(diag, off)
+    def refactor_lanes(rho_b, fac, lanes):
+        """The factor of the given lanes at their new rho, scattered into
+        the carried factor; the other lanes keep theirs."""
+        diag, off = _assemble_blocks(s, _rho_groups(settings, rho_b, s),
+                                     sigma)
+        sub = factor_batched(diag.index_select(0, lanes),
+                             off.index_select(0, lanes))
+        return type(fac)(*(f.index_copy(0, lanes, g)
+                           for f, g in zip(fac, sub)))
 
     rho_b = torch.full((nb,), settings.rho, dtype=dtype, device=dev)
-    if not settings.adaptive_rho:
-        rho_g0, fac0 = factor(rho_b)
+    rho_g = _rho_groups(settings, rho_b, s)
+    fac = factor_batched(*_assemble_blocks(s, rho_g, sigma))
+    refactors = torch.zeros(nb, dtype=torch.int32, device=dev)
 
     def admm_iter(w, z, y, rho_g, fac):
         rz_y = ZGroups(*(rr * zz - yy for zz, yy, rr in zip(z, y, rho_g)))
@@ -710,10 +723,6 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
         frozen = done | (it >= max_it)
         if bool(frozen.all()):      # one host sync per segment
             break
-        if settings.adaptive_rho:
-            rho_g, fac = factor(rho_b)
-        else:
-            rho_g, fac = rho_g0, fac0
         w2, z2, y2 = w, z, y
         for _ in range(settings.check_interval):
             w2, z2, y2 = admm_iter(w2, z2, y2, rho_g, fac)
@@ -766,6 +775,15 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
         dual = torch.where(frozen, dual, dual_n)
         done = done | (done_new & ~frozen)
         status = torch.where(frozen, status, status_new)
+        if settings.adaptive_rho:
+            # refactor only the lanes that triggered and run on; a
+            # segment after which none does launches no factor
+            lanes = (trigger & ~done & (it < max_it)).nonzero()[:, 0]
+            if lanes.numel():
+                fac = refactor_lanes(rho_b, fac, lanes)
+                rho_g = _rho_groups(settings, rho_b, s)
+                refactors = refactors.index_add(
+                    0, lanes, torch.ones_like(lanes, dtype=torch.int32))
 
     # adopt the best-so-far iterate where it beats the final one
     adopt = torch.maximum(pb, db) < torch.maximum(prim, dual)
@@ -790,7 +808,7 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
         status = torch.where(newly, torch.tensor(STATUS_SOLVED, **i32),
                              status)
 
-    return w, y, y_lo, it, prim, dual, status
+    return w, y, y_lo, it, prim, dual, status, rho_b, refactors
 
 
 @dataclasses.dataclass(frozen=True)
@@ -809,14 +827,16 @@ class BlockQPSolution:
     dual_res: torch.Tensor     # (B,)
     converged: torch.Tensor    # (B,) bool
     status: torch.Tensor       # (B,) int32 STATUS_*
+    # the port's additions (the JAX package returns neither):
+    rho: torch.Tensor          # (B,) final ADMM step size of each lane
+    refactors: torch.Tensor    # (B,) int32 adaptive-rho refactorizations
 
 
 def check_settings(settings: QPSettings) -> None:
     """Raise for the solver modes the port does not have yet."""
-    if settings.adaptive_rho and settings.adaptive_rho_mode != "always":
-        raise NotImplementedError(
-            f"adaptive_rho_mode={settings.adaptive_rho_mode!r} is not "
-            "ported (use adaptive_rho=False or adaptive_rho_mode='always')")
+    if settings.adaptive_rho_mode not in ("always", "cond"):
+        raise ValueError(
+            f"unknown adaptive_rho_mode {settings.adaptive_rho_mode!r}")
     if settings.factor_method == "thomas":
         raise NotImplementedError("factor_method='thomas' is not ported")
     if settings.factor_method not in ("cholesky", "pallas"):
@@ -842,7 +862,7 @@ def solve_block_qp(qp: BlockQP, settings: QPSettings = QPSettings(),
         y = _zmap(torch.zeros_like, s.l)
     else:
         y = _zmap(lambda a, b: _bc(s.c, a) * a / b, y0, s.E)
-    w, y, y_lo, it, prim, dual, status = _admm_loop_batched(
+    w, y, y_lo, it, prim, dual, status, rho, refactors = _admm_loop_batched(
         s, w, y, settings, nx, nu)
     w_un = _wmap(lambda a, d: a * d, w, s.D)
 
@@ -853,4 +873,4 @@ def solve_block_qp(qp: BlockQP, settings: QPSettings = QPSettings(),
                            y_lo=_zmap(unscale, y_lo, s.E),
                            iterations=it, prim_res=prim, dual_res=dual,
                            converged=(status == STATUS_SOLVED),
-                           status=status)
+                           status=status, rho=rho, refactors=refactors)

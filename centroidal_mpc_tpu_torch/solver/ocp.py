@@ -3,8 +3,9 @@
 Port of the part of `centroidal_mpc_tpu/solver/ocp.py` that the
 block-structured QP path reads: the sentinel infinity, the dynamics-row
 slack, the friction pyramid, the L1 trust-region sign enumeration,
-`OcpConfig` and the reference-layout dimension count.  The dense QP
-assembly (`build_qp`) and the chance-constraint back-offs are not ported.
+`OcpConfig`, the reference-layout dimension count and the
+chance-constraint back-offs.  The dense QP assembly (`build_qp`) is not
+ported.
 """
 from __future__ import annotations
 
@@ -73,3 +74,31 @@ def qp_dims(model, N: int):
     segs = dict(initial=nx, dynamics=nx * N, final=nx, cop=m_cop,
                 friction=c * 5 * N, trust=8 * (N + 1), slack=N + 1)
     return n, segs
+
+
+def _chance_backoffs(model, cfg: OcpConfig, data,
+                     rot_pyr: torch.Tensor) -> torch.Tensor:
+    """Individual chance-constraint back-offs xi * 2 G_ij sqrt((K S K')_jj),
+    batch-first: data.K (B, N, nu, nx), data.Sigma (B, N+1, nx, nx),
+    rot_pyr (B, N, C, 5, 3), cfg.xi (B,) -> (B, N, C, 5).
+
+    The reference (src/constraints.py:187-214) also adds dSigma/dz terms
+    built from gradient tensors that are identically zero, so only the
+    constant back-off survives: per row i, the sum over force dims j with
+    G_ij > 1e-6 and sqrt((K S K')_jj) > 1e-6, for knots k > 0.  A wrench6
+    robot's force rows are rows 2:5 of each contact's K block."""
+    nb, N, C = rot_pyr.shape[0], rot_pyr.shape[1], rot_pyr.shape[2]
+    if model.contact_model == POINT3:
+        K_c = data.K.reshape(nb, N, C, 3, N_X)
+    else:
+        K_c = data.K.reshape(nb, N, C, 6, N_X)[:, :, :, 2:5, :]
+    KS = torch.einsum("bkcjx,bkxy->bkcjy", K_c, data.Sigma[:, :N])
+    ksk_diag = torch.einsum("bkcjy,bkcjy->bkcj", KS, K_c)
+    sqrt_ksk = torch.sqrt(ksk_diag.clamp(min=0.0))[:, :, :, None, :]
+    G = rot_pyr
+    gate = ((G > 1e-6) & (sqrt_ksk > 1e-6)).to(G.dtype)
+    backoff = (cfg.xi[:, None, None, None] * 2.0
+               * (G * sqrt_ksk * gate).sum(-1))
+    # no back-off at knot 0 (reference src/constraints.py:187 `time_idx>0`)
+    backoff[:, 0] = 0.0
+    return backoff

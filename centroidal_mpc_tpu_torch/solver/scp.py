@@ -13,10 +13,14 @@ model and the schedule has a leading B axis).  Like the vmapped JAX
 program, every iteration runs on all lanes and lanes whose loop condition
 is false keep their state; the loop ends when no lane is active.
 
-This slice has the block QP backend with the reference's frozen
-linearization (`update_linearization=False`): the linearization, the LQR
-gains and the QP blocks are computed once, outside the loop.
-`qp_backend='dense'` and `update_linearization=True` raise
+The block QP backend runs in both of the JAX package's modes.  With the
+reference's frozen linearization (`update_linearization=False`) the
+linearization, the LQR gains and the QP blocks are computed once, outside
+the loop.  With `update_linearization=True` (the proper GuSTO loop, which
+talos needs) every iteration linearizes, runs the DARE and builds the QP
+at each lane's current linearization trajectory X_lin, which moves to an
+accepted solution; the comparison trajectory X_cmp (the reference's
+prev_traj_dict) takes the old X_lin.  `qp_backend='dense'` raises
 NotImplementedError.
 """
 from __future__ import annotations
@@ -78,6 +82,9 @@ class ScpSolution:
     radius: torch.Tensor        # (B,)
     weight: torch.Tensor        # (B,)
     rho: torch.Tensor           # (B,) model-accuracy ratio of the last iteration
+    # the port's additions (the JAX ScpSolution has neither):
+    conv: torch.Tensor          # (B,) convergence metric of the last iteration
+    qp_refactors: torch.Tensor  # (B,) int32: adaptive-rho refactorizations
 
 
 def set_fp32_exact() -> None:
@@ -104,6 +111,14 @@ def _matrix_norm2(M: torch.Tensor, method: str = "svd") -> torch.Tensor:
     raise ValueError(f"unknown norm_method {method!r}")
 
 
+def _convergence_metric(X_curr, U_curr, X_prev, U_prev) -> torch.Tensor:
+    """Reference `convergence` (src/scp_solver.py:51-56): relative spectral
+    norm change of the control and state matrices, per lane.  The exact
+    SVD norm whatever `norm_method` says, as the JAX package has it."""
+    return (_matrix_norm2(U_curr - U_prev) / _matrix_norm2(U_curr)
+            + _matrix_norm2(X_curr - X_prev) / _matrix_norm2(X_curr))
+
+
 def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
               cfg: OcpConfig, X0: torch.Tensor, U0: torch.Tensor,
               settings: ScpSettings = ScpSettings()) -> ScpSolution:
@@ -113,26 +128,31 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
     if settings.qp_backend != "block":
         raise NotImplementedError(
             f"qp_backend={settings.qp_backend!r} is not ported (use 'block')")
-    if settings.update_linearization:
-        raise NotImplementedError("update_linearization=True is not ported")
     blockqp.check_settings(settings.qp)
+    # before any product: the covariance is a chain of N products
     set_fp32_exact()
     nb, N = U0.shape[0], U0.shape[1]
     dtype, dev = X0.dtype, X0.device
+    relin = settings.update_linearization
 
-    # frozen linearization: computed once, outside the loop (the
-    # reference linearizes the initial trajectory every iteration)
-    data = compute_trajectory_data(model, schedule, X0, U0,
-                                   lqr_iters=settings.lqr_iters,
-                                   with_covariance=cfg.stochastic)
-    qp_const = blockqp.build_block_qp(model, schedule, cfg, X0, U0, data,
-                                      settings.trust_region_radius0,
-                                      settings.omega0)
+    def linearize(X, U, radius, weight):
+        data = compute_trajectory_data(model, schedule, X, U,
+                                       lqr_iters=settings.lqr_iters,
+                                       with_covariance=cfg.stochastic)
+        return data, blockqp.build_block_qp(model, schedule, cfg, X, U,
+                                            data, radius, weight)
+
+    if not relin:
+        # frozen linearization: computed once, outside the loop (the
+        # reference linearizes the initial trajectory every iteration)
+        data, qp_const = linearize(X0, U0, settings.trust_region_radius0,
+                                   settings.omega0)
 
     def full(v, dt=dtype):
         return torch.full((nb,), v, dtype=dt, device=dev)
 
     c = dict(
+        X_lin=X0, U_lin=U0, X_cmp=X0, U_cmp=U0,
         X_acc=X0, U_acc=U0,
         K_acc=torch.zeros((nb, N, model.n_u, N_X), dtype=dtype, device=dev),
         Sigma_acc=torch.zeros((nb, N + 1, N_X, N_X), dtype=dtype, device=dev),
@@ -140,6 +160,7 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
         weight=full(settings.omega0),
         it=full(0, torch.int32), success=full(False, torch.bool),
         accepted=full(0, torch.int32), qp_iters=full(0, torch.int32),
+        qp_refactors=full(0, torch.int32),
         qp_ok=full(True, torch.bool), qp_status=full(0, torch.int32),
         rho=full(0.0), conv=full(0.0),
         # primal warm start from the linearization trajectory, duals
@@ -161,15 +182,22 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
         if not bool(active.any()):       # one host sync per SCP iteration
             break
         radius, weight = c["radius"], c["weight"]
-        qp = dataclasses.replace(
-            qp_const, inv_omega=1.0 / weight,
-            trust_ub=radius[:, None, None] + X0[..., 6:9] @ qp_const.penum.T)
+        X_lin, U_lin = c["X_lin"], c["U_lin"]
+        if relin:
+            data, qp = linearize(X_lin, U_lin, radius, weight)
+        else:
+            qp = dataclasses.replace(
+                qp_const, inv_omega=1.0 / weight,
+                trust_ub=(radius[:, None, None]
+                          + X0[..., 6:9] @ qp_const.penum.T))
         bsol = blockqp.solve_block_qp(qp, settings.qp, w0=c["warm_w"],
                                       y0=c["warm_y"])
         X_sol, U_sol = bsol.X, bsol.U
 
-        inside = _matrix_norm2(X_sol - X0, settings.norm_method) < radius
-        rho = model_accuracy(model, schedule, X_sol, U_sol, X0, U0, data)
+        inside = (_matrix_norm2(X_sol - c["X_cmp"], settings.norm_method)
+                  < radius)
+        rho = model_accuracy(model, schedule, X_sol, U_sol, X_lin, U_lin,
+                             data)
         accurate = rho <= settings.rho1
         # a non-converged QP is never accepted; the loop also aborts
         accept = inside & accurate & bsol.converged
@@ -184,15 +212,29 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
         X_acc, U_acc, K_acc, Sigma_acc = _tree.select(
             accept, (X_sol, U_sol, data.K, data.Sigma),
             (c["X_acc"], c["U_acc"], c["K_acc"], c["Sigma_acc"]))
+        if relin:
+            # lane by lane: an accepted solution becomes the next
+            # linearization point, the old one the comparison trajectory
+            X_lin_new, U_lin_new, X_cmp, U_cmp = _tree.select(
+                accept, (X_sol, U_sol, X_lin, U_lin),
+                (X_lin, U_lin, c["X_cmp"], c["U_cmp"]))
+            conv = _convergence_metric(X_lin_new, U_lin_new, X_cmp, U_cmp)
+        else:
+            X_lin_new, U_lin_new = X_lin, U_lin
+            X_cmp, U_cmp = c["X_cmp"], c["U_cmp"]
+            conv = torch.zeros_like(rho)  # reference: always 0
         new = dict(
+            X_lin=X_lin_new, U_lin=U_lin_new, X_cmp=X_cmp, U_cmp=U_cmp,
             X_acc=X_acc, U_acc=U_acc, K_acc=K_acc, Sigma_acc=Sigma_acc,
             radius=radius_new, weight=weight_new, it=c["it"] + 1,
             success=accept, accepted=c["accepted"] + accept.to(torch.int32),
             qp_iters=c["qp_iters"] + bsol.iterations,
+            qp_refactors=c["qp_refactors"] + bsol.refactors,
             qp_ok=c["qp_ok"] & bsol.converged, qp_status=bsol.status,
-            rho=rho, conv=torch.zeros_like(rho),  # reference: always 0
+            rho=rho, conv=conv,
             warm_w=blockqp.WVars(x=X_sol, u=U_sol, t=bsol.t),
             warm_y=bsol.y)
+        # lanes whose loop condition is false keep their state
         c = {k: _tree.select(active, new[k], c[k]) for k in c}
 
     return ScpSolution(
@@ -200,4 +242,4 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
         success=c["success"], accepted=c["accepted"], iterations=c["it"],
         qp_iterations=c["qp_iters"], qp_converged=c["qp_ok"],
         qp_status=c["qp_status"], radius=c["radius"], weight=c["weight"],
-        rho=c["rho"])
+        rho=c["rho"], conv=c["conv"], qp_refactors=c["qp_refactors"])

@@ -2,27 +2,42 @@
 
     python3 chip_smoke.py
 
-Phases (each raises on failure, so the script exits non-zero):
+Phases (the first four raise on failure, so the script exits non-zero):
   1. environment: torch/CUDA versions, the card's name and power limit;
      fails when no CUDA device is present (there is no CPU fallback);
   2. build: compiles the hand-written kernels (centroidal_mpc_tpu_torch/
      csrc/*.cu) with nvcc for sm_90a;
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the small bench shape, the main path's shapes, a horizon that
-     wraps the sweeps' ring (N=165) and a batch of more than one wave
-     (B=300); the factor's two launches (chain, couplings) also each
-     alone; the DARE gains on the real linearizations of solo12_trot_n50
-     (nu 12) and bolt_pace (nu 6) over 128 scenarios, at 2 steps (the
-     main path's) and 30 (the stochastic stage's); CUDA-event times of
-     kernel and plain version, warm and with L2 flushed, beside the bound
-     computed from the bytes and operations of the launch;
-  4. the slice: 128 solo12_trot_n50 SCP problems in float32 through
+     wraps the sweeps' ring (N=165), a batch of more than one wave
+     (B=300) and the other paths' shapes (bolt_pace's V=16, solo12_pace's
+     N=107, N=165 at B=32); the factor's two launches (chain, couplings)
+     also each alone; the DARE gains on the real linearizations of
+     solo12_trot_n50 (nu 12) and bolt_pace (nu 6) over 128 scenarios at 2
+     steps (the main path's) and 30 (the stochastic stage's), of
+     talos_pace (wrench6) over 32 at 2 and of solo12_trot over 8 at 30;
+     CUDA-event times of kernel and plain version, warm and with L2
+     flushed, beside the bound computed from the bytes and operations of
+     the launch;
+  4. the main path: 128 solo12_trot_n50 SCP problems in float32 through
      parallel.batch.batched_solve (block backend, frozen linearization,
      power-iteration trust norm, fixed-rho block ADMM with its refinement
      polish), checked for success on every lane, for launches of every
      kernel, and against the committed float64 reference solution; then
      one more batch under torch.profiler: device time per kernel name and
-     the device's busy share.
+     the device's busy share;
+  5. the other paths, each through batched_solve with the launch counts
+     zeroed just before it and read just after (every kernel must have
+     launched), at its preset's full widths and horizon:
+       stochastic        the bench's chance-constrained row, B=64;
+       stochastic_stage  the pipeline's stage 2' (N=165, 30 DARE steps), B=8;
+       presets/*         the bench's preset matrix (solo12 pace and bound,
+                         bolt pace, talos pace re-linearizing), B=32 each;
+       cond              'cond' adaptive rho, B=32;
+       terrain           solo12_trot on the trot debris, B=8.
+     Each prints its launches, CUDA-event wall time, n_success and status
+     counts; every path runs even when an earlier one fails its gate, and
+     the script then exits non-zero without a result.
 
 Output: a JSON line of per-kernel results, the nvidia-smi name/power-limit
 line, and as the last line {"ok": true, "device": {...}}.
@@ -39,6 +54,7 @@ import numpy as np
 import torch
 
 from centroidal_mpc_tpu_torch.config import presets
+from centroidal_mpc_tpu_torch.contact.terrain import DEBRIS_BY_GAIT
 from centroidal_mpc_tpu_torch.models.centroidal import linearize_step
 from centroidal_mpc_tpu_torch.ops import block_tridiag as bt
 from centroidal_mpc_tpu_torch.ops import cuda_lib
@@ -51,16 +67,29 @@ from centroidal_mpc_tpu_torch.solver.scp import set_fp32_exact
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REF_CACHE = os.path.join(ROOT, "benchmarks", "ref_cache",
                          "solo12_trot_n50_1dbb8aa1aab5.npz")
+STOCH_REF = "solo12_trot_n50_stoch_2300b6ec2317.npz"
 BATCH = 128
 SEED = 0
 KERNEL_RTOL = 1e-4      # f32 kernel vs plain, relative to the plain max
 PARITY_BAR = 1e-4       # u_err_inf / x_err_inf vs the f64 reference
 # kernel-vs-plain shapes (B, N, V): the bench's kernel_exact shape, the
-# main path's, a horizon that wraps the sweeps' ring, more than one wave
-KERNEL_SHAPES = [(32, 8, 22), (BATCH, 50, 22), (4, 165, 22), (300, 50, 22)]
+# main path's, a horizon that wraps the sweeps' ring, more than one wave,
+# then the other paths' shapes: bolt_pace (V=16, the generic width-32
+# build with pad lanes), solo12_pace, and N=165 at the preset batch
+KERNEL_SHAPES = [(32, 8, 22), (BATCH, 50, 22), (4, 165, 22), (300, 50, 22),
+                 (32, 122, 16), (32, 107, 22), (32, 165, 22)]
 # DARE steps: the main path's, then the stochastic stage's
 # (centroidal_mpc_tpu/pipeline.py:55, stochastic_lqr_iters)
 DARE_ITERS = (2, 30)
+# the DARE against its plain version on real linearizations, (preset
+# name, scenarios, step counts): the main path's and bolt's (nu 6) over
+# BATCH scenarios at both step counts, talos's (wrench6 B) as its preset
+# row runs it (S = 32 x 165, 2 steps, once an SCP iteration), and the
+# stochastic stage's (S = 8 x 165, 30 steps)
+DARE_CASES = (("solo12_trot_n50", BATCH, DARE_ITERS),
+              ("bolt_pace", BATCH, DARE_ITERS),
+              ("talos_pace", 32, (2,)),
+              ("solo12_trot", 8, (30,)))
 # published H100 SXM peaks at 700 W (NVIDIA's data sheet): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -332,11 +361,11 @@ def phase_kernels():
     return results
 
 
-def dare_inputs(preset):
+def dare_inputs(preset, batch=BATCH):
     """Q, R and the (A, B) pairs of a preset's real linearization at the
-    BATCH scenarios' warm starts, f32 on the card: S = BATCH * N."""
+    `batch` scenarios' warm starts, f32 on the card: S = batch * N."""
     prob = presets.build_problem(preset, dtype=torch.float32, device="cuda")
-    X0, U0, _ = scenarios(prob)
+    X0, U0, _ = scenarios(prob, batch)
     sched = prob.plan.schedule
     pos = sched.positions_flat().reshape(sched.horizon, sched.n_contacts, 3)
     _, A, Bm, _ = linearize_step(prob.model, X0[:, :-1], U0, pos,
@@ -347,13 +376,14 @@ def dare_inputs(preset):
 
 
 def phase_dare():
-    """dare_lqr against its plain version on solo12_trot_n50 (nu 12) and
-    bolt_pace (nu 6) at DARE_ITERS steps; timed on solo12 at both."""
-    inputs = {p.name: dare_inputs(p)
-              for p in (presets.SOLO12_TROT_N50, presets.BOLT_PACE)}
+    """dare_lqr against its plain version on the real linearizations of
+    DARE_CASES; timed on solo12_trot_n50 at DARE_ITERS steps."""
+    inputs = {name: dare_inputs(presets.PRESETS[name], batch)
+              for name, batch, _ in DARE_CASES}
     max_abs = None
-    for name, args in inputs.items():
-        for n_iter in DARE_ITERS:
+    for name, _, step_counts in DARE_CASES:
+        args = inputs[name]
+        for n_iter in step_counts:
             Kk = lqr_kernel.lqr_gain_batched(*args, n_iter)
             Kp = lqr_kernel.lqr_gain_plain(*args, n_iter)
             torch.cuda.synchronize()
@@ -365,7 +395,7 @@ def phase_dare():
                                        f"rel err {k_err}")
             if max_abs is None:   # the main path's: solo12, 2 steps
                 max_abs = float((Kk - Kp).abs().max())
-    Q, R, A, Bm = inputs[presets.SOLO12_TROT_N50.name]
+    Q, R, A, Bm = inputs["solo12_trot_n50"]
     S, nu = A.shape[0], Bm.shape[-1]
     runs = {n_iter: timings(
         lambda: lqr_kernel.lqr_gain_batched(Q, R, A, Bm, n_iter),
@@ -383,15 +413,15 @@ def phase_dare():
                                            "bound_ms")})
 
 
-def scenarios(prob):
+def scenarios(prob, batch=BATCH):
     """Scenario 0 unperturbed; the others get 0.005 N(0,1) on CoM x, y
     over the whole warm-start trajectory (bench.py:239-257)."""
     rng = np.random.default_rng(SEED)
-    dx = np.zeros((BATCH, 9))
-    dx[1:, :2] = 0.005 * rng.standard_normal((BATCH - 1, 2))
+    dx = np.zeros((batch, 9))
+    dx[1:, :2] = 0.005 * rng.standard_normal((batch - 1, 2))
     dx = torch.as_tensor(dx, dtype=prob.X0.dtype, device=prob.X0.device)
     X0 = prob.X0[None] + dx[:, None, :]
-    U0 = prob.U0.expand((BATCH,) + prob.U0.shape)
+    U0 = prob.U0.expand((batch,) + prob.U0.shape)
     cfg = tile_ocp_config(prob.ocp, X0[:, 0], X0[:, -1], X0)
     return X0, U0, cfg
 
@@ -444,62 +474,304 @@ def phase_slice(card):
     check(n_success == BATCH, f"only {n_success}/{BATCH} lanes succeeded")
     check(x_err <= PARITY_BAR and u_err <= PARITY_BAR,
           f"parity: x_err {x_err}, u_err {u_err} > {PARITY_BAR}")
-    return counts, solve
+    return counts, solve, batch_ms
 
 
-def phase_profile(solve):
-    """One more main-path batch under torch.profiler: device time by
-    kernel name and the device's busy share of the batch's CUDA-event
-    time.  Returns each of the port's kernels' mean device ms per wrapper
-    call in the path (the factor's two launches summed)."""
+def profile_batch(solve):
+    """One batch under torch.profiler, tracing the device only (host ops
+    would double the events to process after a long batch): (CUDA-event
+    ms of the batch, device ms by kernel name with launch counts, the
+    wrappers' calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     reset_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start.record()
         solve()
         end.record()
         torch.cuda.synchronize()
     calls = launch_counts()
-    batch_ms = start.elapsed_time(end)
     per_name = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             us, n = per_name.get(ev.name, (0.0, 0))
             per_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+    return start.elapsed_time(end), per_name, calls
+
+
+def kernel_device_ms(per_name, name):
+    """(device ms, device launches) of one of the port's kernels (the
+    factor's two launches summed) in a profiled batch."""
+    total, launches = 0.0, 0
+    for kernel in DEVICE_KERNELS[name]:
+        hits = [v for k, v in per_name.items() if kernel in k]
+        total += sum(h[0] for h in hits) / 1e3
+        launches += sum(h[1] for h in hits)
+    return total, launches
+
+
+def phase_profile(solve, batch_ms):
+    """One more main-path batch under torch.profiler: device time by
+    kernel name, and the device's busy share: that device time over
+    batch_ms, the unprofiled batch's CUDA-event time (the profiler slows
+    the host).  Returns each of the port's kernels' mean device ms per
+    wrapper call in the path (the factor's two launches summed)."""
+    profiled_ms, per_name, calls = profile_batch(solve)
     busy_ms = sum(us for us, _ in per_name.values()) / 1e3
-    print(f"# profile: batch {batch_ms:.2f} ms under the profiler, device "
-          f"busy {busy_ms:.2f} ms ({busy_ms / batch_ms:.1%}), "
+    print(f"# profile: device busy {busy_ms:.2f} ms, busy share "
+          f"{busy_ms / batch_ms:.1%} of the unprofiled batch's "
+          f"{batch_ms:.2f} ms ({profiled_ms:.2f} ms under the profiler), "
           f"{sum(n for _, n in per_name.values())} device events")
     check(busy_ms > 0, "the profiler saw no device time")
     in_path = {}
     for name in REPLACES:
-        us = 0.0
         for kernel in DEVICE_KERNELS[name]:
             hits = [v for k, v in per_name.items() if kernel in k]
             k_us, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
             check(n > 0, f"the profiler saw no {kernel} in the batch")
             print(f"#   {kernel}: {n} launches, {k_us / 1e3:.3f} ms in the "
                   f"batch ({k_us / 1e3 / n:.4f} ms per launch)")
-            us += k_us
-        in_path[name] = us / 1e3 / max(calls[name], 1)
-        print(f"#   {name}: {calls[name]} calls, {us / 1e3:.3f} ms in the "
+        ms, _ = kernel_device_ms(per_name, name)
+        in_path[name] = ms / max(calls[name], 1)
+        print(f"#   {name}: {calls[name]} calls, {ms:.3f} ms in the "
               f"batch ({in_path[name]:.4f} ms per call, "
-              f"{us / 1e3 / busy_ms:.1%} of busy time)")
+              f"{ms / busy_ms:.1%} of busy time)")
     for k, (us, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"#   top: {us / 1e3:8.3f} ms {n:6d}x {k[:90]}")
     return in_path
 
 
+# ---------------------------------------------------------------------------
+# the other paths: each driven once through batched_solve with every
+# launch count set to 0 just before it and read just after
+# ---------------------------------------------------------------------------
+
+
+def ref_errors(sol, name):
+    """(x_err_inf, u_err_inf) of scenario 0 against a committed float64
+    reference solution, loaded by its exact file name."""
+    ref = np.load(os.path.join(ROOT, "benchmarks", "ref_cache", name))
+    return (float(np.abs(sol.X[0].double().cpu().numpy() - ref["X"]).max()),
+            float(np.abs(sol.U[0].double().cpu().numpy() - ref["U"]).max()))
+
+
+def drive(path, prob, scp, batch, card, profile=False):
+    """Solve `batch` scenarios of prob through parallel.batch.batched_solve
+    once, timed by CUDA events, with the launch counts zeroed just before
+    and read just after; every kernel must have launched.  profile: one
+    more batch under torch.profiler for each kernel's device time and the
+    device's busy share: all device time of that batch over the
+    unprofiled batch's CUDA-event time (the profiler slows the host).
+    Returns (solution, the path's record)."""
+    X0, U0, cfg = scenarios(prob, batch)
+
+    def solve():
+        return batched_solve(prob.model, prob.plan.schedule, cfg, X0, U0,
+                             scp)
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    start.record()
+    sol = solve()
+    end.record()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    wall_ms = start.elapsed_time(end)
+    statuses = {int(k): int(n) for k, n in zip(
+        *torch.unique(sol.qp_status, return_counts=True))}
+    n_success = int(sol.success.sum())
+    rec = dict(path=path, batch=batch, horizon=prob.plan.horizon,
+               launches=counts, wall_ms=wall_ms, n_success=n_success,
+               qp_status=statuses,
+               scp_iterations_max=int(sol.iterations.max()),
+               mean_qp_iters=float(sol.qp_iterations.float().mean()))
+    print(f"# {path}: {prob.preset.name} N={prob.plan.horizon} B={batch}: "
+          f"launches {counts}; wall {wall_ms:.2f} ms (CUDA events, one "
+          f"batch); n_success {n_success}/{batch}; qp_status counts "
+          f"{statuses}; SCP iterations max {rec['scp_iterations_max']}, "
+          f"mean QP iterations {rec['mean_qp_iters']:.1f} [{card}]")
+    for lane in (~sol.success).nonzero()[:, 0].tolist():
+        print(f"#   {path}: lane {lane} failed: qp_status "
+              f"{int(sol.qp_status[lane])}, SCP iterations "
+              f"{int(sol.iterations[lane])}, qp_converged "
+              f"{bool(sol.qp_converged[lane])}")
+    for name, n in counts.items():
+        check(n > 0, f"{path}: kernel {name} was not launched")
+    check(bool(torch.isfinite(sol.X).all() and torch.isfinite(sol.U).all()
+               and torch.isfinite(sol.K).all()
+               and torch.isfinite(sol.Sigma).all()),
+          f"{path}: non-finite outputs")
+    if profile:
+        t0 = time.perf_counter()
+        batch_ms, per_name, calls = profile_batch(solve)
+        rec["profile_s"] = time.perf_counter() - t0
+        busy = sum(us for us, _ in per_name.values()) / 1e3
+        rec.update(profiled_ms=batch_ms, busy_ms=busy,
+                   busy_share=busy / wall_ms)
+        print(f"#   {path} profile: device busy {busy:.2f} ms, busy share "
+              f"{busy / wall_ms:.1%} of the unprofiled batch's "
+              f"{wall_ms:.2f} ms ({batch_ms:.2f} ms under the profiler), "
+              f"{sum(n for _, n in per_name.values())} device events; "
+              f"{rec['profile_s']:.1f} s with the trace's processing")
+        for name in REPLACES:
+            ms, n = kernel_device_ms(per_name, name)
+            rec[f"{name}_ms_in_batch"] = ms / max(calls[name], 1)
+            print(f"#   {path} profile: {name}: {calls[name]} calls, "
+                  f"{n} device launches, {ms:.3f} ms in the batch "
+                  f"({ms / max(calls[name], 1):.4f} ms per call)")
+    return sol, rec
+
+
+def problem(preset, qp=QP, norm_method="power", **kw):
+    prob = presets.build_problem(preset, dtype=torch.float32, qp=qp,
+                                 device="cuda", **kw)
+    scp = dataclasses.replace(prob.scp, qp_backend="block",
+                              norm_method=norm_method)
+    return prob, scp
+
+
+def phase_stochastic(card):
+    """The bench's stochastic row (bench.py:499-521): solo12_trot_n50,
+    chance-constrained, B=64, the bench operating point, 2 DARE steps."""
+    prob, scp = problem(presets.SOLO12_TROT_N50, stochastic=True)
+    sol, rec = drive("stochastic", prob, scp, 64, card)
+    rec["x_err_inf"], rec["u_err_inf"] = ref_errors(sol, STOCH_REF)
+    print(f"# stochastic: scenario 0 x_err_inf {rec['x_err_inf']:.3e}, "
+          f"u_err_inf {rec['u_err_inf']:.3e} against {STOCH_REF}; trace "
+          f"Sigma_N {float(sol.Sigma[0, -1].diagonal().sum()):.3f}")
+    check(rec["n_success"] == 64, f"stochastic: {rec['n_success']}/64")
+    check(rec["x_err_inf"] <= PARITY_BAR and rec["u_err_inf"] <= PARITY_BAR,
+          f"stochastic parity: {rec['x_err_inf']}, {rec['u_err_inf']}")
+    return rec
+
+
+def phase_stochastic_stage(card):
+    """Pipeline stage 2' as the f32 pipeline runs it
+    (centroidal_mpc_tpu/pipeline.py:102-104, 167-190): solo12_trot
+    (N=165), chance-constrained, 30 DARE steps, QP eps 1e-4, 'always'
+    rho, polish; B=8.  The warm start is the preset's analytic one: stage
+    1's iLQR warm start (ddp_warm_start) is not ported yet."""
+    qp = QPSettings(eps_abs=1e-4, eps_rel=1e-4, max_iter=4000,
+                    adaptive_rho=True, adaptive_rho_mode="always",
+                    polish=True)
+    prob, scp = problem(presets.SOLO12_TROT, qp=qp, norm_method="svd",
+                        stochastic=True)
+    scp = dataclasses.replace(scp, lqr_iters=30)
+    sol, rec = drive("stochastic_stage", prob, scp, 8, card, profile=True)
+    print(f"# stochastic_stage: the DARE at 30 steps: "
+          f"{rec['launches']['dare_lqr']} launches, "
+          f"{rec['dare_lqr_ms_in_batch']:.4f} ms a call in the batch (S = "
+          f"8 x 165); trace Sigma_N of scenario 0 "
+          f"{float(sol.Sigma[0, -1].diagonal().sum()):.3f}")
+    check(bool(sol.success[0]), "stochastic_stage: scenario 0 failed")
+    return rec
+
+
+# the bench's preset matrix (bench.py:550-600) and each row's reference
+PRESET_ROWS = (("solo12_pace", "solo12_pace_d89ac1ddf233.npz"),
+               ("solo12_bound", "solo12_bound_70d700d765f5.npz"),
+               ("bolt_pace", "bolt_pace_db3f1193029a.npz"),
+               ("talos_pace", "talos_pace_3a1d4d3d1382.npz"))
+
+
+def phase_presets(card):
+    """Each row of the bench's preset matrix at B=32, eps 5e-4 + polish;
+    talos (wrench6, re-linearizing) with 'always' rho as the bench runs
+    it (bench.py:564-571).  Scenario 0 must succeed; bolt must also meet
+    the parity bar; u_err of pace, bound and talos is data (pace and
+    bound miss it in the JAX package too, ROADMAP Queue C)."""
+    recs = []
+    for name, ref in PRESET_ROWS:
+        preset = presets.PRESETS[name]
+        qp = QP
+        if preset.robot.n_u_per_contact == 6:
+            qp = dataclasses.replace(QP, adaptive_rho=True,
+                                     adaptive_rho_mode="always")
+        prob, scp = problem(preset, qp=qp)
+        talos = scp.update_linearization
+        sol, rec = drive(f"presets/{name}", prob, scp, 32, card,
+                         profile=talos)
+        rec["x_err_inf"], rec["u_err_inf"] = ref_errors(sol, ref)
+        print(f"# presets/{name}: scenario 0 x_err_inf "
+              f"{rec['x_err_inf']:.3e}, u_err_inf {rec['u_err_inf']:.3e} "
+              f"against {ref}" + ("" if name == "bolt_pace" else " (data)"))
+        check(bool(sol.success[0]), f"presets/{name}: scenario 0 failed")
+        if name == "bolt_pace":
+            check(rec["x_err_inf"] <= PARITY_BAR
+                  and rec["u_err_inf"] <= PARITY_BAR,
+                  f"bolt_pace parity: {rec['x_err_inf']}, "
+                  f"{rec['u_err_inf']}")
+        if talos:
+            # one linearization, DARE and QP build per SCP iteration
+            check(rec["launches"]["dare_lqr"] == rec["scp_iterations_max"],
+                  f"talos: {rec['launches']['dare_lqr']} DARE launches for "
+                  f"{rec['scp_iterations_max']} SCP iterations")
+        recs.append(rec)
+    return recs
+
+
+def phase_cond(card):
+    """'cond' adaptive rho (the JAX default): solo12_trot_n50, B=32, the
+    bench point with adaptive_rho_mode='cond'.  Each lane carries its rho
+    and factor; only the lanes whose ratio leaves the deadband are
+    refactored.  u_err against the nominal reference is data (the JAX
+    package reads 2.43 here on the CPU in f32)."""
+    qp = dataclasses.replace(QP, adaptive_rho=True, adaptive_rho_mode="cond")
+    prob, scp = problem(presets.SOLO12_TROT_N50, qp=qp)
+    sol, rec = drive("cond", prob, scp, 32, card)
+    rec["x_err_inf"], rec["u_err_inf"] = ref_errors(
+        sol, os.path.basename(REF_CACHE))
+    r = sol.qp_refactors.float()
+    rec["refactors"] = (int(r.min()), float(r.mean()), int(r.max()))
+    print(f"# cond: factor launches {rec['launches']['tridiag_factor']}; "
+          f"refactors a lane min {rec['refactors'][0]}, mean "
+          f"{rec['refactors'][1]:.2f}, max {rec['refactors'][2]}; scenario "
+          f"0 x_err_inf {rec['x_err_inf']:.3e}, u_err_inf "
+          f"{rec['u_err_inf']:.3e} (data)")
+    check(rec["n_success"] == 32, f"cond: {rec['n_success']}/32")
+    return rec
+
+
+def phase_terrain(card):
+    """solo12_trot on the reference's trot debris (DEBRIS_BY_GAIT['TROT']),
+    B=8, the bench point: footholds snapped onto tilted stones."""
+    prob, scp = problem(presets.SOLO12_TROT,
+                        terrain=DEBRIS_BY_GAIT["TROT"])
+    sched = prob.plan.schedule
+    planted = sched.logic > 0
+    eye = torch.eye(3, device=sched.orientation.device)
+    raised = planted & (sched.position[..., 2].abs() > 0)
+    tilted = (sched.orientation - eye).abs().amax((-2, -1)) > 1e-6
+    n_off = int((raised & tilted).sum())
+    sol, rec = drive("terrain", prob, scp, 8, card)
+    rec["footholds_off_ground"] = n_off
+    print(f"# terrain: {n_off} planted (knot, foot) pairs off z=0 with a "
+          f"rotated frame, highest {float(sched.position[..., 2].max()):.4f}"
+          f" m")
+    check(n_off > 0, "terrain: no foothold off z=0 with a rotated frame")
+    check(bool(sol.success[0]), "terrain: scenario 0 failed")
+    return rec
+
+
+PATHS = (phase_stochastic, phase_stochastic_stage, phase_presets,
+         phase_cond, phase_terrain)
+
+
 def main():
+    t0 = time.perf_counter()
     card = phase_environment()
     phase_build()
     results = phase_kernels()
-    counts, solve = phase_slice(card)
-    in_path = phase_profile(solve)
+    print(f"# environment, build and kernels: "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts, solve, batch_ms = phase_slice(card)
+    in_path = phase_profile(solve, batch_ms)
+    print(f"# main path and its profile: {time.perf_counter() - t0:.1f} s")
     for name, r in results.items():
         # cold reads its inputs from HBM; a warm repeat finds those that
         # fit in the 50 MB L2, so its share is not one of the HBM bound
@@ -507,9 +779,25 @@ def main():
         print(f"# share of bound {name}: {r['bound_ms'] / r['cold_ms']:.1%}"
               f" cold, {path:.1%} in the batch, "
               f"{r['bound_ms'] / r['ms']:.1%} warm (from L2)")
+    # every other path, each with its own gates; a failed gate fails the
+    # script after the remaining paths have run
+    records, failed = [], []
+    for phase in PATHS:
+        t0 = time.perf_counter()
+        try:
+            out = phase(card)
+            records.extend(out if isinstance(out, list) else [out])
+        except Exception as e:  # noqa: BLE001 -- re-raised below
+            failed.append(f"{phase.__name__}: {type(e).__name__}: {e}")
+            print(f"# FAILED {failed[-1]}")
+        print(f"# {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    by_path = {"main": counts, **{r["path"]: r["launches"] for r in records}}
+    if failed:
+        raise SystemExit("chip_smoke: failed: " + "; ".join(failed))
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=counts[name],
                     **results[name], path_ms=in_path[name],
+                    launches_by_path={p: c[name] for p, c in by_path.items()},
                     library_note=LIBRARY_NOTE[name]) for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -155,8 +155,7 @@ def test_unported_modes_raise():
     data = tdata(p.model, p.plan.schedule, X, U, with_covariance=False)
     qp = tbq.build_block_qp(p.model, p.plan.schedule, cfg, X, U, data,
                             100.0, 100.0)
-    for fields in (dict(adaptive_rho=True, adaptive_rho_mode="cond"),
-                   dict(adaptive_rho=False, factor_method="thomas"),
+    for fields in (dict(adaptive_rho=False, factor_method="thomas"),
                    dict(adaptive_rho=False, sweep_method="assoc")):
         with pytest.raises(NotImplementedError):
             tbq.solve_block_qp(qp, qp_settings_pair(**fields)[1])

@@ -200,3 +200,52 @@ def test_sweeps_raise_on_unaligned_tensors(cuda, dtype):
                        Pbwd=_one_element_in(fac.Pbwd))
     assert _rel(bt.backward_sweep(odd, rhs),
                 bt.backward_sweep_plain(fac, rhs)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,n,v", [(6, 30, 22), (5, 122, 16)])
+def test_factor_of_gathered_lanes_equals_full_factor(cuda, dtype, b, n, v):
+    """'cond' rho refactors only the lanes that trigger: the factor of an
+    index_select of lanes (fresh, contiguous, aligned tensors) equals those
+    lanes of the factor of the whole batch, bit for bit (each scenario is
+    factored alone), and scattered back by index_copy it gives the whole
+    batch's factor."""
+    diag, off, _ = _system(b, n, v, dtype, cuda)
+    lanes = torch.tensor([1, 3, b - 1], device=cuda)
+    full = bt.factor_batched(diag, off)
+    count = bt.launches["tridiag_factor"]
+    sub = bt.factor_batched(diag.index_select(0, lanes),
+                            off.index_select(0, lanes))
+    assert bt.launches["tridiag_factor"] == count + 1
+    for x, y in zip(sub, full):
+        assert torch.equal(x, y.index_select(0, lanes))
+    stale = bt.factor_batched(diag + torch.eye(v, dtype=dtype, device=cuda),
+                              off)
+    merged = [s.index_copy(0, lanes, g) for s, g in zip(stale, sub)]
+    keep = torch.tensor([i for i in range(b) if i not in lanes.tolist()],
+                        device=cuda)
+    for m, f, s in zip(merged, full, stale):
+        assert torch.equal(m.index_select(0, lanes), f.index_select(0, lanes))
+        assert torch.equal(m.index_select(0, keep), s.index_select(0, keep))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dare_kernel_on_talos_linearization(cuda, dtype):
+    """The DARE on talos's real linearization (wrench6: nu 12, B with the
+    CoP and torque columns) at its warm start, 2 steps, S = 165: the
+    re-linearizing SCP runs it once an iteration."""
+    from centroidal_mpc_tpu_torch.config import presets
+    from centroidal_mpc_tpu_torch.models.centroidal import linearize_step
+    prob = presets.build_problem(presets.TALOS_PACE, dtype=dtype,
+                                 device=cuda)
+    sched = prob.plan.schedule
+    _, A, B, _ = linearize_step(prob.model, prob.X0[:-1], prob.U0,
+                                sched.position, sched.logic,
+                                sched.orientation)
+    assert B.shape == (165, 9, 12) and B[:, 6:9, 0:2].abs().max() > 0
+    args = (prob.model.Q, prob.model.R, A.contiguous(), B.contiguous())
+    count = lqr_kernel.launches["dare_lqr"]
+    K = lqr_kernel.lqr_gain_batched(*args, n_iter=2)
+    torch.cuda.synchronize()
+    assert lqr_kernel.launches["dare_lqr"] == count + 1
+    assert _rel(K, lqr_kernel.lqr_gain_plain(*args, 2)) < TOL[dtype]

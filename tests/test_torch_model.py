@@ -98,26 +98,32 @@ def test_linearize_step_matches_jacfwd():
 
 def test_compute_trajectory_data_matches_jax():
     """(c) Batched compute_trajectory_data: f, A, B, C equal the JAX
-    package's (vmapped over scenarios) at rtol 1e-12; K is checked
-    in the LQR tests below."""
+    package's (vmapped over scenarios) at rtol 1e-12, without the
+    covariance (Sigma zero) and with it; K is checked in the LQR tests
+    below.  Sigma from the port's own gains against the JAX package's
+    scan on its gains: 1e-12 relative to the largest entry (the gains of
+    the two DARE inverses agree to ~1e-13 relative here)."""
     jprob = jpresets.build_problem(jpresets.SOLO12_TROT_MINI,
                                    dtype=jnp.float64)
     model, schedule, *_ = port_problem(jprob)
     X1, U1 = _random_trajectory(jprob, seed=3)
     X2, U2 = _random_trajectory(jprob, seed=4)
     X, U = np.stack([X1, X2]), np.stack([U1, U2])
-    jd = jax.vmap(lambda x, u: jcm.compute_trajectory_data(
-        jprob.model, jprob.plan.schedule, x, u, with_covariance=False))(X, U)
-    td = tcm.compute_trajectory_data(model, schedule, torch.as_tensor(X),
-                                     torch.as_tensor(U),
-                                     with_covariance=False)
-    for k in ("f", "A", "B", "C", "Sigma"):
-        np.testing.assert_allclose(getattr(td, k).numpy(),
-                                   np.asarray(getattr(jd, k)), rtol=1e-12,
-                                   atol=1e-12, err_msg=k)
-    with pytest.raises(NotImplementedError):
-        tcm.compute_trajectory_data(model, schedule, torch.as_tensor(X),
-                                    torch.as_tensor(U))
+    for cov in (False, True):
+        jd = jax.vmap(lambda x, u: jcm.compute_trajectory_data(
+            jprob.model, jprob.plan.schedule, x, u,
+            with_covariance=cov))(X, U)
+        td = tcm.compute_trajectory_data(model, schedule, torch.as_tensor(X),
+                                         torch.as_tensor(U),
+                                         with_covariance=cov)
+        for k in ("f", "A", "B", "C"):
+            np.testing.assert_allclose(getattr(td, k).numpy(),
+                                       np.asarray(getattr(jd, k)),
+                                       rtol=1e-12, atol=1e-12, err_msg=k)
+        ref = np.asarray(jd.Sigma)
+        assert bool(np.abs(ref).max() > 0) == cov
+        assert np.abs(td.Sigma.numpy() - ref).max() <= \
+            1e-12 * max(np.abs(ref).max(), 1.0)
 
 
 def _real_AB(dtype, name="solo12_trot_n50"):

@@ -110,20 +110,21 @@ def test_matrix_norm2_matches_jax(method):
 
 
 def test_unported_scp_paths_raise():
-    """qp_backend='dense' (the preset default), re-linearization and
-    stochastic problems are later slices: they raise, not run."""
+    """What the port still lacks raises, not runs: qp_backend='dense'
+    (the preset default) and the 'thomas' factor and 'assoc' sweep
+    settings of the block QP inside the SCP loop."""
     prob = tpresets.build_problem(tpresets.SOLO12_TROT_MINI,
                                   dtype=torch.float64, device="cpu")
     X, U = prob.X0[None], prob.U0[None]
     cfg = tile_ocp_config(prob.ocp, X[:, 0], X[:, -1], X)
+    block = dataclasses.replace(prob.scp, qp_backend="block")
     for scp in (prob.scp,
-                dataclasses.replace(prob.scp, qp_backend="block",
-                                    update_linearization=True)):
+                dataclasses.replace(block, qp=dataclasses.replace(
+                    block.qp, factor_method="thomas")),
+                dataclasses.replace(block, qp=dataclasses.replace(
+                    block.qp, sweep_method="assoc"))):
         with pytest.raises(NotImplementedError):
             batched_solve(prob.model, prob.plan.schedule, cfg, X, U, scp)
-    with pytest.raises(NotImplementedError):
-        tpresets.build_problem(tpresets.SOLO12_TROT_MINI, stochastic=True,
-                               device="cpu")
 
 
 def test_build_problem_defaults_to_the_card():

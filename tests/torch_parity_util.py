@@ -27,6 +27,13 @@ from centroidal_mpc_tpu_torch.parallel.batch import tile_ocp_config
 from centroidal_mpc_tpu_torch.solver.ocp import OcpConfig
 from centroidal_mpc_tpu_torch.solver.scp import ScpSettings
 
+# One intra-op thread for the port's CPU computations: their tensors are
+# tiny (B <= 4 scenarios of 22 x 22 blocks), so threads buy nothing alone,
+# and under pytest-xdist each worker's pool of one thread a core
+# oversubscribes the CPUs -- the f32 parity solve of test_torch_slice.py
+# took 199 s in a six-worker run against 1 s alone.
+torch.set_num_threads(1)
+
 # the bench headline operating point (bench.py defaults), as a dict so
 # both packages' QPSettings can be built from it
 BENCH_QP = dict(eps_abs=5e-4, eps_rel=5e-4, polish=True, polish_iters=12,
@@ -120,25 +127,58 @@ def reduced_trot():
     return jpresets.build_problem(preset, dtype=jnp.float64)
 
 
-def qp_pair(jprob, batch):
+def talos_short():
+    """talos_pace with its gait cut to one short pace cycle (N=30):
+    wrench6 contacts and the preset's re-linearization stay on."""
+    return dataclasses.replace(
+        jpresets.TALOS_PACE, gait=dataclasses.replace(
+            jpresets.TALOS_PACE.gait, step_knots=6, support_knots=2,
+            nb_steps=1))
+
+
+# the JAX package's linearization and block-QP build of a scenario batch,
+# jitted once (eager vmapped dispatch of the f64 DARE chain costs ~6 s a
+# call on the CPU; a jitted call of an already compiled shape ~0.01 s)
+jax_trajectory_data = jax.jit(
+    jax.vmap(compute_trajectory_data, in_axes=(None, None, 0, 0, None, None)),
+    static_argnums=(4, 5))
+_jax_block_qp = jax.jit(jax.vmap(
+    lambda m, sched, c, x, u, d: jbq.build_block_qp(
+        m, sched, c, x, u, d, jnp.asarray(100.0), jnp.asarray(50.0)),
+    in_axes=(None, None, 0, 0, 0, 0)))
+
+
+def qp_pair(jprob, batch, lqr_iters=2, model=None):
     """Matching JAX (vmapped leaves) and port BlockQPs for a perturbed
-    scenario batch, linearized at the warm start."""
+    scenario batch, linearized at the warm start; a stochastic problem
+    gets its covariance and chance back-offs.  Both packages build from
+    the same linearization (the JAX one, converted).  model: a JAX-package
+    CentroidalModel to use instead of the problem's own."""
+    jmodel = jprob.model if model is None else model
     Xb, Ub = perturbed_batch(jprob.X0, jprob.U0, batch, seed=3, scale=1e-3)
     cfg = jax.vmap(lambda x: jprob.ocp.replace(
         x_init=x[0], x_final=x[-1], X_track=x))(Xb)
-
-    def build(x, u, c):
-        data = compute_trajectory_data(jprob.model, jprob.plan.schedule, x,
-                                       u, with_covariance=False)
-        return jbq.build_block_qp(jprob.model, jprob.plan.schedule, c, x, u,
-                                  data, jnp.asarray(100.0), jnp.asarray(50.0))
-
-    jqp = jax.vmap(build)(Xb, Ub, cfg)
-    jdata = jax.vmap(lambda x, u: compute_trajectory_data(
-        jprob.model, jprob.plan.schedule, x, u, with_covariance=False))(Xb, Ub)
-    model, schedule, ocp, *_ = port_problem(jprob)
+    jdata = jax_trajectory_data(jmodel, jprob.plan.schedule, Xb, Ub,
+                                lqr_iters, jprob.ocp.stochastic)
+    jqp = _jax_block_qp(jmodel, jprob.plan.schedule, cfg, Xb, Ub, jdata)
+    _, schedule, ocp, *_ = port_problem(jprob)
+    tmodel = convert.from_numpy(CentroidalModel, np_fields(jmodel), "cpu")
     X, U = torch.as_tensor(Xb), torch.as_tensor(Ub)
     tcfg = tile_ocp_config(ocp, X[:, 0], X[:, -1], X)
     tdata = convert.from_numpy(TrajectoryData, np_fields(jdata), "cpu")
-    tqp = tbq.build_block_qp(model, schedule, tcfg, X, U, tdata, 100.0, 50.0)
+    tqp = tbq.build_block_qp(tmodel, schedule, tcfg, X, U, tdata, 100.0,
+                             50.0)
     return jqp, tqp, Xb, Ub
+
+
+def infeasible_stochastic_qp_pair(batch=2):
+    """The stochastic block QP of solo12_trot_n50 with cov_w scaled by
+    3e3 in both packages: the back-offs lower the friction upper bounds
+    to about -6.4 N, more than a planted foot's share of the weight can
+    buy, so the QP is primal infeasible.  It has the shapes of the
+    nominal N=50 trot QP, so a jitted JAX solve compiles once for both."""
+    jprob = jpresets.build_problem(jpresets.SOLO12_TROT_N50,
+                                   stochastic=True, dtype=jnp.float64)
+    jmodel = jprob.model.replace(cov_w=jprob.model.cov_w * 3e3)
+    jqp, tqp, _, _ = qp_pair(jprob, batch, model=jmodel)
+    return jqp, tqp
