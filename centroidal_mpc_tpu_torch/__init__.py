@@ -1,7 +1,8 @@
 """centroidal_mpc_tpu_torch: the PyTorch + CUDA port of centroidal_mpc_tpu.
 
 Batch-first PyTorch counterparts of the JAX package's modules (same
-layout and names: config/, contact/, models/, ops/, solver/, parallel/),
+layout and names: config/, contact/, models/, ops/, solver/, parallel/,
+sim/),
 with hand-written CUDA kernels for Hopper (csrc/) in place of the JAX
 package's Pallas TPU kernels.  The package never imports jax.
 
@@ -32,6 +33,25 @@ pipeline's stage runs ``dataclasses.replace(scp, lqr_iters=30)``),
 (footholds on tilted stones), ``QPSettings(adaptive_rho=True,
 adaptive_rho_mode="cond")``, and ``update_linearization=True`` in the
 ScpSettings (the talos preset's default).
+
+Receding-horizon MPC (`solver/mpc.MpcController`, B=1 for one robot)
+and the Monte-Carlo push study (`sim/monte_carlo.run_monte_carlo`, with
+`sim/metrics`) take the same problem::
+
+    from centroidal_mpc_tpu_torch.sim.monte_carlo import run_monte_carlo
+    from centroidal_mpc_tpu_torch.solver.mpc import MpcController
+
+    cfg1 = dataclasses.replace(
+        tile_ocp_config(prob.ocp, X0[:1, 0], X0[:1, -1], X0[:1]),
+        terminal_equality=False)
+    ctrl = MpcController(model=prob.model, schedule=prob.plan.schedule,
+                         cfg=cfg1, settings=dataclasses.replace(
+                             scp, max_iterations=1), window=20)
+    state = ctrl.init_state(X0[:1], U0[:1])
+    state, tick_sol = ctrl.step(state, X0[:1, 0])   # one tick
+    res = run_monte_carlo(prob.model, prob.plan.schedule, sol.X[0],
+                          sol.U[0], sol.K[0], torch.Generator().manual_seed(0),
+                          n_sims=1024)
 """
 
 __version__ = "0.1.0"

@@ -234,6 +234,19 @@ def integrate_dynamics_trajectory(model: CentroidalModel,
                          schedule.logic, schedule.orientation)
 
 
+def rollout(model: CentroidalModel, schedule: ContactSchedule,
+            x0: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """Chained nonlinear rollout from x0 (..., nx) under controls
+    U (..., N, nu): (..., N+1, nx).  A plain loop over the knots (the JAX
+    package runs it as a `lax.scan`, outside any kernel)."""
+    xs = [x0]
+    for k in range(U.shape[-2]):
+        xs.append(dynamics_step(model, xs[-1], U[..., k, :],
+                                schedule.position[k], schedule.logic[k],
+                                schedule.orientation[k]))
+    return torch.stack(xs, dim=-2)
+
+
 def model_accuracy(model: CentroidalModel, schedule: ContactSchedule,
                    X_curr, U_curr, X_prev, U_prev,
                    data: TrajectoryData) -> torch.Tensor:

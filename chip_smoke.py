@@ -34,7 +34,16 @@ Phases (the first four raise on failure, so the script exits non-zero):
        presets/*         the bench's preset matrix (solo12 pace and bound,
                          bolt pace, talos pace re-linearizing), B=32 each;
        cond              'cond' adaptive rho, B=32;
-       terrain           solo12_trot on the trot debris, B=8.
+       terrain           solo12_trot on the trot debris, B=8;
+       mpc               30 receding-horizon ticks of solver/mpc.py on
+                         solo12_trot_n50 (window 20, B=1, the bench's tick
+                         settings), then one at the clamp: per tick its
+                         status, QP iterations and launches, host time
+                         p50/p99, one profiled tick's busy share, tick 0
+                         against an f64 CPU solve of the same window;
+       monte_carlo       sim/monte_carlo.run_monte_carlo on the main
+                         path's scenario-0 plan, 1024 sims, against the
+                         same draws on the CPU, and the sim metrics.
      Each prints its launches, CUDA-event wall time, n_success and status
      counts; every path runs even when an earlier one fails its gate, and
      the script then exits non-zero without a result.
@@ -53,6 +62,7 @@ import time
 import numpy as np
 import torch
 
+from centroidal_mpc_tpu_torch import _tree
 from centroidal_mpc_tpu_torch.config import presets
 from centroidal_mpc_tpu_torch.contact.terrain import DEBRIS_BY_GAIT
 from centroidal_mpc_tpu_torch.models.centroidal import linearize_step
@@ -62,6 +72,9 @@ from centroidal_mpc_tpu_torch.ops import lqr_kernel
 from centroidal_mpc_tpu_torch.ops.admm import QPSettings
 from centroidal_mpc_tpu_torch.parallel.batch import (batched_solve,
                                                      tile_ocp_config)
+from centroidal_mpc_tpu_torch.sim import metrics
+from centroidal_mpc_tpu_torch.sim.monte_carlo import run_monte_carlo
+from centroidal_mpc_tpu_torch.solver.mpc import MpcController
 from centroidal_mpc_tpu_torch.solver.scp import set_fp32_exact
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -72,24 +85,35 @@ BATCH = 128
 SEED = 0
 KERNEL_RTOL = 1e-4      # f32 kernel vs plain, relative to the plain max
 PARITY_BAR = 1e-4       # u_err_inf / x_err_inf vs the f64 reference
+# the MPC tick (bench.py:437-496): solo12_trot_n50's plan, a 20-knot
+# window, B=1; 30 ticks from tick 0, then one at the clamp (max_tick 30)
+MPC_WINDOW = 20
+MPC_TICKS = 30
+MPC_SHAPE = (1, MPC_WINDOW, 22)
+MC_SIMS = 1024          # Monte-Carlo sims on the main path's plan
+MC_RTOL = 1e-4          # card vs CPU X_sim, relative to max|X_sim|
 # kernel-vs-plain shapes (B, N, V): the bench's kernel_exact shape, the
 # main path's, a horizon that wraps the sweeps' ring, more than one wave,
 # then the other paths' shapes: bolt_pace (V=16, the generic width-32
-# build with pad lanes), solo12_pace, and N=165 at the preset batch
+# build with pad lanes), solo12_pace, N=165 at the preset batch, the MPC
+# tick's window and one full-plan scenario
 KERNEL_SHAPES = [(32, 8, 22), (BATCH, 50, 22), (4, 165, 22), (300, 50, 22),
-                 (32, 122, 16), (32, 107, 22), (32, 165, 22)]
+                 (32, 122, 16), (32, 107, 22), (32, 165, 22), MPC_SHAPE,
+                 (1, 50, 22)]
 # DARE steps: the main path's, then the stochastic stage's
 # (centroidal_mpc_tpu/pipeline.py:55, stochastic_lqr_iters)
 DARE_ITERS = (2, 30)
 # the DARE against its plain version on real linearizations, (preset
-# name, scenarios, step counts): the main path's and bolt's (nu 6) over
-# BATCH scenarios at both step counts, talos's (wrench6 B) as its preset
-# row runs it (S = 32 x 165, 2 steps, once an SCP iteration), and the
-# stochastic stage's (S = 8 x 165, 30 steps)
-DARE_CASES = (("solo12_trot_n50", BATCH, DARE_ITERS),
-              ("bolt_pace", BATCH, DARE_ITERS),
-              ("talos_pace", 32, (2,)),
-              ("solo12_trot", 8, (30,)))
+# name, scenarios, knots (None: the whole plan), step counts): the main
+# path's and bolt's (nu 6) over BATCH scenarios at both step counts,
+# talos's (wrench6 B) as its preset row runs it (S = 32 x 165, 2 steps,
+# once an SCP iteration), the stochastic stage's (S = 8 x 165, 30 steps)
+# and the MPC tick's window (S = 1 x 20, 2 steps, once a tick)
+DARE_CASES = (("solo12_trot_n50", BATCH, None, DARE_ITERS),
+              ("bolt_pace", BATCH, None, DARE_ITERS),
+              ("talos_pace", 32, None, (2,)),
+              ("solo12_trot", 8, None, (30,)),
+              ("solo12_trot_n50", 1, MPC_WINDOW, (2,)))
 # published H100 SXM peaks at 700 W (NVIDIA's data sheet): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -281,7 +305,10 @@ def check(ok, what):
 
 
 def phase_kernels():
-    results = {}
+    """Every kernel against its plain version at every shape.  Returns the
+    main path's numbers per kernel, each with its numbers at the MPC
+    tick's shape (B=1) under the keys with an `_mpc` suffix."""
+    results, mpc_times = {}, {}
     for (b, n, v) in KERNEL_SHAPES:
         diag, off, rhs = random_system(b, n, v, seed=7)
         fk = bt.factor_batched(diag, off)
@@ -319,6 +346,19 @@ def phase_kernels():
               f"{chain_err:.2e}, couple rel {couple_err:.2e}")
         check(chain_err < KERNEL_RTOL, f"factor chain rel err {chain_err}")
         check(couple_err < KERNEL_RTOL, f"factor couple rel err {couple_err}")
+        if (b, n, v) == MPC_SHAPE:   # the MPC tick's: times at B=1
+            mpc_times["tridiag_factor"] = timings(
+                lambda: bt.factor_batched(diag, off),
+                lambda: bt.factor_plain(diag, off),
+                bt.factor_cost(b, n + 1, v))
+            mpc_times["tridiag_fwd"] = timings(
+                lambda: bt.forward_sweep(fk, rhs),
+                lambda: bt.forward_sweep_plain(fk, rhs),
+                bt.sweep_cost(b, n + 1, v))
+            mpc_times["tridiag_bwd"] = timings(
+                lambda: bt.backward_sweep(fk, vk),
+                lambda: bt.backward_sweep_plain(fk, vk),
+                bt.sweep_cost(b, n + 1, v))
         if b == BATCH:   # main-path shape: record errors and times
             results["tridiag_factor"] = dict(
                 max_abs_err=f_abs,
@@ -351,25 +391,33 @@ def phase_kernels():
                           lambda: bt.backward_sweep_plain(fk, vk),
                           bt.sweep_cost(b, n + 1, v)))
 
-    results["dare_lqr"] = phase_dare()
+    results["dare_lqr"], mpc_times["dare_lqr"] = phase_dare()
     for name, r in results.items():
         print(f"# time {name}: kernel {r['ms']:.4f} ms warm, "
               f"{r['cold_ms']:.4f} ms cold, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
               f"{r['layout_bound_ms']:.4f} ms for the bytes of the whole "
               f"tensors)")
+    for name, r in mpc_times.items():
+        print(f"# time {name} mpc B=1: kernel {r['ms']:.4f} ms warm, "
+              f"{r['cold_ms']:.4f} ms cold, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.3e} ms ({r['bound_by']})")
+        results[name].update({k + "_mpc": r[k] for k in (
+            "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by")})
     return results
 
 
-def dare_inputs(preset, batch=BATCH):
+def dare_inputs(preset, batch=BATCH, knots=None):
     """Q, R and the (A, B) pairs of a preset's real linearization at the
-    `batch` scenarios' warm starts, f32 on the card: S = batch * N."""
+    `batch` scenarios' warm starts over the first `knots` knots (None:
+    all N), f32 on the card: S = batch * knots."""
     prob = presets.build_problem(preset, dtype=torch.float32, device="cuda")
     X0, U0, _ = scenarios(prob, batch)
     sched = prob.plan.schedule
-    pos = sched.positions_flat().reshape(sched.horizon, sched.n_contacts, 3)
-    _, A, Bm, _ = linearize_step(prob.model, X0[:, :-1], U0, pos,
-                                 sched.logic, sched.orientation)
+    n = sched.horizon if knots is None else knots
+    _, A, Bm, _ = linearize_step(prob.model, X0[:, :n], U0[:, :n],
+                                 sched.position[:n], sched.logic[:n],
+                                 sched.orientation[:n])
     nu = prob.model.n_u
     return (prob.model.Q, prob.model.R, A.reshape(-1, 9, 9).contiguous(),
             Bm.reshape(-1, 9, nu).contiguous())
@@ -377,12 +425,13 @@ def dare_inputs(preset, batch=BATCH):
 
 def phase_dare():
     """dare_lqr against its plain version on the real linearizations of
-    DARE_CASES; timed on solo12_trot_n50 at DARE_ITERS steps."""
-    inputs = {name: dare_inputs(presets.PRESETS[name], batch)
-              for name, batch, _ in DARE_CASES}
+    DARE_CASES; timed on solo12_trot_n50 at DARE_ITERS steps and on the
+    MPC window at 2.  Returns (the main path's numbers, the window's)."""
+    inputs = {case[:3]: dare_inputs(presets.PRESETS[case[0]], *case[1:3])
+              for case in DARE_CASES}
     max_abs = None
-    for name, _, step_counts in DARE_CASES:
-        args = inputs[name]
+    for case in DARE_CASES:
+        name, step_counts, args = case[0], case[3], inputs[case[:3]]
         for n_iter in step_counts:
             Kk = lqr_kernel.lqr_gain_batched(*args, n_iter)
             Kp = lqr_kernel.lqr_gain_plain(*args, n_iter)
@@ -395,7 +444,7 @@ def phase_dare():
                                        f"rel err {k_err}")
             if max_abs is None:   # the main path's: solo12, 2 steps
                 max_abs = float((Kk - Kp).abs().max())
-    Q, R, A, Bm = inputs["solo12_trot_n50"]
+    Q, R, A, Bm = inputs[DARE_CASES[0][:3]]
     S, nu = A.shape[0], Bm.shape[-1]
     runs = {n_iter: timings(
         lambda: lqr_kernel.lqr_gain_batched(Q, R, A, Bm, n_iter),
@@ -408,9 +457,13 @@ def phase_dare():
           f"{r['bound_ms'] / r['cold_ms']:.1%} cold, "
           f"{r['bound_ms'] / r['ms']:.1%} warm")
     tag = f"_n_iter{DARE_ITERS[-1]}"
+    Qw, Rw, Aw, Bw = inputs[DARE_CASES[-1][:3]]
+    window = timings(lambda: lqr_kernel.lqr_gain_batched(Qw, Rw, Aw, Bw, 2),
+                     lambda: lqr_kernel.lqr_gain_plain(Qw, Rw, Aw, Bw, 2),
+                     lqr_kernel.lqr_cost(Aw.shape[0], 9, Bw.shape[-1], 2))
     return dict(max_abs_err=max_abs, **runs[DARE_ITERS[0]],
                 **{k + tag: r[k] for k in ("ms", "cold_ms", "plain_ms",
-                                           "bound_ms")})
+                                           "bound_ms")}), window
 
 
 def scenarios(prob, batch=BATCH):
@@ -474,7 +527,7 @@ def phase_slice(card):
     check(n_success == BATCH, f"only {n_success}/{BATCH} lanes succeeded")
     check(x_err <= PARITY_BAR and u_err <= PARITY_BAR,
           f"parity: x_err {x_err}, u_err {u_err} > {PARITY_BAR}")
-    return counts, solve, batch_ms
+    return counts, solve, batch_ms, (prob, sol)
 
 
 def profile_batch(solve):
@@ -757,8 +810,196 @@ def phase_terrain(card):
     return rec
 
 
+def mpc_controller(dtype, device):
+    """The bench's MPC tick (bench.py:437-496) on solo12_trot_n50: the
+    bench point at eps 5e-4 without the polish, 'cond' rho, one SCP
+    iteration, free terminal state, block backend, power trust norm;
+    window MPC_WINDOW, B=1.  Returns (controller, X0 (1, N+1, nx),
+    U0 (1, N, nu))."""
+    qp = dataclasses.replace(QP, polish=False, adaptive_rho=True,
+                             adaptive_rho_mode="cond")
+    prob = presets.build_problem(presets.SOLO12_TROT_N50, dtype=dtype,
+                                 qp=qp, device=device)
+    scp = dataclasses.replace(prob.scp, qp_backend="block",
+                              norm_method="power", max_iterations=1)
+    X0, U0 = prob.X0[None], prob.U0[None]
+    cfg = dataclasses.replace(tile_ocp_config(prob.ocp, X0[:, 0], X0[:, -1],
+                                              X0), terminal_equality=False)
+    return (MpcController(model=prob.model, schedule=prob.plan.schedule,
+                          cfg=cfg, settings=scp, window=MPC_WINDOW), X0, U0)
+
+
+def phase_mpc(card):
+    """MPC_TICKS receding-horizon ticks from tick 0 in f32, each measuring
+    the last tick's sol.X[1] (the bench's perfect-tracking chain,
+    bench.py:477-481), then one more tick at the clamp; the launch counts
+    zeroed just before the ticks and read just after.  Per tick: solved,
+    under the iteration cap, every kernel launched.  Host time of a tick
+    with a device sync inside the timed window, p50/p99 over ticks 2-29;
+    one tick again unprofiled (CUDA events) and profiled for the busy
+    share; tick 0 against the port's f64 CPU solve of the same window."""
+    ctrl, X0, U0 = mpc_controller(torch.float32, "cuda")
+    state = ctrl.init_state(X0, U0)
+    x = X0[:, 0]
+    ticks, replay = [], None
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(MPC_TICKS + 1):
+        before = launch_counts()
+        if i == MPC_TICKS // 3:
+            replay = (state, x)
+        t0 = time.perf_counter()
+        state, sol = ctrl.step(state, x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: n - before[k] for k, n in launch_counts().items()}
+        ticks.append(dict(
+            success=bool(sol.success[0]), status=int(sol.qp_status[0]),
+            qp_iters=int(sol.qp_iterations[0]),
+            refactors=int(sol.qp_refactors[0]), launches=launched, ms=ms,
+            tick=state.tick))
+        print(f"# mpc tick {i}{' (clamp)' if i == MPC_TICKS else ''}: "
+              f"success {ticks[-1]['success']}, status "
+              f"{ticks[-1]['status']}, qp iters {ticks[-1]['qp_iters']}, "
+              f"refactors {ticks[-1]['refactors']}, factor calls "
+              f"{launched['tridiag_factor']}, launches {launched}, "
+              f"{ms:.2f} ms, next tick {state.tick}")
+        if i == 0:
+            sol0 = sol
+        x = sol.X[:, 1]
+    counts = launch_counts()
+    ms = np.array([t["ms"] for t in ticks[2:MPC_TICKS]])
+    p50, p99 = float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+    n_solved = sum(t["success"] for t in ticks[:MPC_TICKS])
+    rec = dict(path="mpc", batch=1, horizon=MPC_WINDOW, launches=counts,
+               n_success=n_solved, ticks=len(ticks), tick_p50_ms=p50,
+               tick_p99_ms=p99,
+               qp_iters=[t["qp_iters"] for t in ticks],
+               factor_calls=[t["launches"]["tridiag_factor"] for t in ticks])
+    print(f"# mpc: solo12_trot_n50 window {MPC_WINDOW} B=1 f32: "
+          f"{n_solved}/{MPC_TICKS} ticks solved (+ the clamp tick: "
+          f"{ticks[-1]['success']}); launches {counts}; QP iterations a "
+          f"tick min {min(rec['qp_iters'])} mean "
+          f"{statistics.fmean(rec['qp_iters']):.1f} max "
+          f"{max(rec['qp_iters'])}; factor calls a tick min "
+          f"{min(rec['factor_calls'])} max {max(rec['factor_calls'])}; "
+          f"tick time (host, synced) p50 {p50:.2f} ms, p99 {p99:.2f} ms "
+          f"over ticks 2-{MPC_TICKS - 1} [{card}]")
+
+    # one tick again, unprofiled then profiled: the device's busy share
+    st, xm = replay
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    ctrl.step(st, xm)
+    end.record()
+    torch.cuda.synchronize()
+    tick_ms = start.elapsed_time(end)
+    profiled_ms, per_name, calls = profile_batch(lambda: ctrl.step(st, xm))
+    busy = sum(us for us, _ in per_name.values()) / 1e3
+    rec.update(profiled_tick=MPC_TICKS // 3, tick_ms=tick_ms, busy_ms=busy,
+               busy_share=busy / tick_ms)
+    print(f"# mpc profile (tick {MPC_TICKS // 3}): device busy {busy:.3f} "
+          f"ms, busy share {busy / tick_ms:.1%} of the unprofiled tick's "
+          f"{tick_ms:.2f} ms ({profiled_ms:.2f} ms under the profiler), "
+          f"{sum(n for _, n in per_name.values())} device events")
+    for name in REPLACES:
+        k_ms, n = kernel_device_ms(per_name, name)
+        rec[f"{name}_ms_in_tick"] = k_ms / max(calls[name], 1)
+        print(f"#   mpc profile: {name}: {calls[name]} calls, {n} device "
+              f"launches, {k_ms:.3f} ms in the tick "
+              f"({rec[f'{name}_ms_in_tick']:.4f} ms per call)")
+
+    # tick 0 against the port's own f64 solve of the same window (data)
+    ref_ctrl, rX0, rU0 = mpc_controller(torch.float64, "cpu")
+    _, ref = ref_ctrl.step(ref_ctrl.init_state(rX0, rU0), rX0[:, 0])
+    rec["tick0_u_err"] = float((sol0.U[0].double().cpu() - ref.U[0]).abs()
+                               .max())
+    rec["tick0_x_err"] = float((sol0.X[0].double().cpu() - ref.X[0]).abs()
+                               .max())
+    print(f"# mpc: tick 0 against the f64 CPU solve of its window: u_err "
+          f"{rec['tick0_u_err']:.3e}, x_err {rec['tick0_x_err']:.3e} (data; "
+          f"f64 {int(ref.qp_iterations[0])} QP iterations, f32 "
+          f"{ticks[0]['qp_iters']})")
+
+    check(busy > 0, "mpc: the profiler saw no device time")
+    for i, t in enumerate(ticks):
+        check(t["success"], f"mpc: tick {i} not solved (status "
+                            f"{t['status']})")
+        check(t["qp_iters"] < QP.max_iter, f"mpc: tick {i} hit the cap")
+        for name, n in t["launches"].items():
+            check(n > 0, f"mpc: kernel {name} not launched in tick {i}")
+    check(ticks[MPC_TICKS - 1]["tick"] == ctrl.max_tick == 30
+          and ticks[-1]["tick"] == ctrl.max_tick,
+          f"mpc: the tick does not clamp at {ctrl.max_tick}")
+    return rec
+
+
+def phase_monte_carlo(card, prob, sol):
+    """sim.monte_carlo.run_monte_carlo on the main path's scenario-0 plan
+    (its X, U and K), MC_SIMS sims, disturbances drawn on the CPU from a
+    generator seeded with SEED and moved to the card; the same draws
+    through the port on the CPU in f32 must agree within MC_RTOL of
+    max|X_sim|.  The rollout launches none of the port's kernels."""
+    plan = (sol.X[0], sol.U[0], sol.K[0])
+
+    def run(model, schedule, X, U, K):
+        return run_monte_carlo(model, schedule, X, U, K,
+                               torch.Generator().manual_seed(SEED), MC_SIMS)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    res = run(prob.model, prob.plan.schedule, *plan)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    again = run(prob.model, prob.plan.schedule, *plan)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end)
+    cpu = run(*_tree.to_device((prob.model, prob.plan.schedule) + plan,
+                               "cpu"))
+    scale = float(res.X_sim.abs().max())
+    err = float((res.X_sim.cpu() - cpu.X_sim).abs().max()) / scale
+    cost = metrics.cumulative_tracking_cost(prob.model.Q, res.X_sim,
+                                            plan[0])
+    fric = metrics.friction_cone_stats(prob.ocp.pyramid, prob.plan.schedule,
+                                       res.U_sim)
+    ratio = metrics.tangential_ratio(prob.plan.schedule, res.U_sim)
+    rec = dict(path="monte_carlo", sims=MC_SIMS, wall_ms=wall_ms,
+               rel_err_vs_cpu=err,
+               cum_cost_mean=float(cost["cum_mean"][-1]),
+               cum_cost_std=float(cost["cum_std"][-1]),
+               violations=int(fric["violations"].sum()),
+               saturations=int(fric["saturations"].sum()),
+               max_tangential_ratio=float(ratio.nan_to_num(0.0).max()))
+    print(f"# monte_carlo: {MC_SIMS} sims of solo12_trot_n50's scenario-0 "
+          f"plan (push {float(res.push_force[:, 1].abs().max()):.2f} N at "
+          f"most): batch {wall_ms:.2f} ms (CUDA events) [{card}]; X_sim "
+          f"card vs CPU {err:.2e} of max|X_sim| {scale:.3f}; cumulative "
+          f"tracking cost mean {rec['cum_cost_mean']:.4e}, std "
+          f"{rec['cum_cost_std']:.4e}; pyramid violations "
+          f"{rec['violations']}, saturations {rec['saturations']}; max "
+          f"|f_t|/f_z {rec['max_tangential_ratio']:.4f}; launches {counts}")
+    check(res.X_sim.shape == (MC_SIMS, prob.plan.horizon + 1, 9),
+          "monte_carlo: X_sim shape")
+    check(bool(torch.isfinite(res.X_sim).all()
+               and torch.isfinite(res.U_sim).all()
+               and torch.isfinite(cost["cum_mean"]).all()),
+          "monte_carlo: non-finite outputs")
+    check(torch.equal(res.X_sim, again.X_sim),
+          "monte_carlo: a second run of the same draws differs")
+    check(err <= MC_RTOL, f"monte_carlo: card vs CPU {err} > {MC_RTOL}")
+    check(all(n == 0 for n in counts.values()),
+          f"monte_carlo: launched kernels {counts}")
+    return rec
+
+
 PATHS = (phase_stochastic, phase_stochastic_stage, phase_presets,
-         phase_cond, phase_terrain)
+         phase_cond, phase_terrain, phase_mpc)
 
 
 def main():
@@ -769,7 +1010,7 @@ def main():
     print(f"# environment, build and kernels: "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counts, solve, batch_ms = phase_slice(card)
+    counts, solve, batch_ms, main_solution = phase_slice(card)
     in_path = phase_profile(solve, batch_ms)
     print(f"# main path and its profile: {time.perf_counter() - t0:.1f} s")
     for name, r in results.items():
@@ -782,16 +1023,21 @@ def main():
     # every other path, each with its own gates; a failed gate fails the
     # script after the remaining paths have run
     records, failed = [], []
-    for phase in PATHS:
+    phases = [(p.__name__, lambda p=p: p(card)) for p in PATHS]
+    phases.append(("phase_monte_carlo",
+                   lambda: phase_monte_carlo(card, *main_solution)))
+    for name, phase in phases:
         t0 = time.perf_counter()
         try:
-            out = phase(card)
+            out = phase()
             records.extend(out if isinstance(out, list) else [out])
         except Exception as e:  # noqa: BLE001 -- re-raised below
-            failed.append(f"{phase.__name__}: {type(e).__name__}: {e}")
+            failed.append(f"{name}: {type(e).__name__}: {e}")
             print(f"# FAILED {failed[-1]}")
-        print(f"# {phase.__name__}: {time.perf_counter() - t0:.1f} s")
-    by_path = {"main": counts, **{r["path"]: r["launches"] for r in records}}
+        print(f"# {name}: {time.perf_counter() - t0:.1f} s")
+    # the Monte-Carlo rollout launches no kernel: no launches entry
+    by_path = {"main": counts, **{r["path"]: r["launches"] for r in records
+                                  if "launches" in r}}
     if failed:
         raise SystemExit("chip_smoke: failed: " + "; ".join(failed))
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],

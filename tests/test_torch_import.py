@@ -15,13 +15,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_import_leaves_jax_out():
-    """(a) Every module of the port imports without jax, flax or the JAX
-    package entering sys.modules."""
+    """(a) Every module of the port, the MPC controller and the sim
+    package among them, imports without jax, flax or the JAX package
+    entering sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import centroidal_mpc_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in\n"
+        "         pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "walked = {n[len(p.__name__) + 1:] for n in names}\n"
+        "missing = {'solver.mpc', 'sim', 'sim.monte_carlo',\n"
+        "           'sim.metrics'} - walked\n"
+        "assert not missing, missing\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'centroidal_mpc_tpu'))\n"

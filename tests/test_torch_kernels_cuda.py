@@ -44,9 +44,12 @@ def _rel(a, b):
 # path's; (4, 165, 22) wraps the sweeps' ring of stages five times and
 # (300, 50, 22) takes more than one wave of the 132 SMs; odd V copies by
 # cp.async instead of TMA, V other than 22 runs the generic sweep, and N=0
-# has no coupling block (the factor then skips its second launch)
+# has no coupling block (the factor then skips its second launch);
+# (1, 20, 22) is the MPC tick's window and (1, 50, 22) one full-plan
+# scenario
 SHAPES = [(5, 7, 22), (3, 1, 13), (2, 0, 9), (32, 8, 22), (128, 50, 22),
-          (4, 165, 22), (300, 50, 22), (3, 20, 31), (6, 30, 16)]
+          (4, 165, 22), (300, 50, 22), (3, 20, 31), (6, 30, 16),
+          (1, 20, 22), (1, 50, 22)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -123,10 +126,11 @@ def _dare_inputs(S, nx, nu, dtype, device, seed=1):
 # (S, nx, nu, n_iter): solo12's (9, 12) at 0, the main path's 2 and the
 # stochastic stage's 30 steps, and at the main path's S = 6,400; bolt's
 # (9, 6); S = 1 and 3 leave the last warp's second problem empty; (7, 10)
-# and (16, 16) run the generic width
+# and (16, 16) run the generic width; S = 20 is the MPC tick's window
 DARE_CASES = [(37, 9, 12, 0), (37, 9, 12, 2), (37, 9, 12, 30),
               (6400, 9, 12, 2), (41, 9, 6, 2), (41, 9, 6, 30),
-              (1, 9, 12, 2), (3, 9, 6, 2), (5, 7, 10, 2), (3, 16, 16, 2)]
+              (1, 9, 12, 2), (3, 9, 6, 2), (5, 7, 10, 2), (3, 16, 16, 2),
+              (20, 9, 12, 2)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -249,3 +253,79 @@ def test_dare_kernel_on_talos_linearization(cuda, dtype):
     torch.cuda.synchronize()
     assert lqr_kernel.launches["dare_lqr"] == count + 1
     assert _rel(K, lqr_kernel.lqr_gain_plain(*args, 2)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b", [1, 3])
+def test_factor_of_one_gathered_lane(cuda, dtype, b):
+    """'cond' rho at the MPC tick's shape (N=20, V=22): a segment in which
+    one lane triggers factors that lane alone, gathered by index_select
+    (B=1 gathers the only lane); the factor equals that lane of the full
+    one bit for bit, and index_copy puts it back."""
+    diag, off, _ = _system(b, 20, 22, dtype, cuda)
+    lane = torch.tensor([b - 1], device=cuda)
+    full = bt.factor_batched(diag, off)
+    count = bt.launches["tridiag_factor"]
+    sub = bt.factor_batched(diag.index_select(0, lane),
+                            off.index_select(0, lane))
+    assert bt.launches["tridiag_factor"] == count + 1
+    for x, y in zip(sub, full):
+        assert x.shape[0] == 1 and torch.equal(x, y.index_select(0, lane))
+    stale = bt.factor_batched(diag + torch.eye(22, dtype=dtype, device=cuda),
+                              off)
+    for m, f in zip((s.index_copy(0, lane, g) for s, g in zip(stale, sub)),
+                    full):
+        assert torch.equal(m.index_select(0, lane), f.index_select(0, lane))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dare_kernel_on_mpc_window_linearization(cuda, dtype):
+    """The DARE on the MPC tick's window (solo12_trot_n50's first 20
+    knots at its warm start, S = 20, 2 steps): the tick runs it once."""
+    from centroidal_mpc_tpu_torch.config import presets
+    from centroidal_mpc_tpu_torch.models.centroidal import linearize_step
+    prob = presets.build_problem(presets.SOLO12_TROT_N50, dtype=dtype,
+                                 device=cuda)
+    sched = prob.plan.schedule
+    _, A, B, _ = linearize_step(prob.model, prob.X0[:20], prob.U0[:20],
+                                sched.position[:20], sched.logic[:20],
+                                sched.orientation[:20])
+    args = (prob.model.Q, prob.model.R, A.contiguous(), B.contiguous())
+    count = lqr_kernel.launches["dare_lqr"]
+    K = lqr_kernel.lqr_gain_batched(*args, n_iter=2)
+    torch.cuda.synchronize()
+    assert lqr_kernel.launches["dare_lqr"] == count + 1
+    assert K.shape == (20, 12, 9)
+    assert _rel(K, lqr_kernel.lqr_gain_plain(*args, 2)) < TOL[dtype]
+
+
+def test_mpc_tick_launches_every_kernel(cuda):
+    """Two MPC ticks on the card (solo12_trot_n50, window 20, B=1, f32,
+    the bench's tick settings): each is solved and launches every kernel;
+    the window's slices reach the kernels only through fresh tensors."""
+    import dataclasses
+    from centroidal_mpc_tpu_torch.config import presets
+    from centroidal_mpc_tpu_torch.ops.admm import QPSettings
+    from centroidal_mpc_tpu_torch.parallel.batch import tile_ocp_config
+    from centroidal_mpc_tpu_torch.solver.mpc import MpcController
+    qp = QPSettings(eps_abs=5e-4, eps_rel=5e-4, polish=False,
+                    check_interval=10, alpha=1.7, adaptive_rho=True,
+                    adaptive_rho_mode="cond", max_iter=4000,
+                    stall_segments=30, factor_method="pallas")
+    prob = presets.build_problem(presets.SOLO12_TROT_N50, qp=qp, device=cuda)
+    scp = dataclasses.replace(prob.scp, qp_backend="block",
+                              norm_method="power", max_iterations=1)
+    X0, U0 = prob.X0[None], prob.U0[None]
+    cfg = dataclasses.replace(tile_ocp_config(prob.ocp, X0[:, 0], X0[:, -1],
+                                              X0), terminal_equality=False)
+    ctrl = MpcController(model=prob.model, schedule=prob.plan.schedule,
+                         cfg=cfg, settings=scp, window=20)
+    state, x = ctrl.init_state(X0, U0), X0[:, 0]
+    for tick in range(2):
+        before = {**bt.launches, **lqr_kernel.launches}
+        state, sol = ctrl.step(state, x)
+        torch.cuda.synchronize()
+        after = {**bt.launches, **lqr_kernel.launches}
+        assert bool(sol.success[0]) and state.tick == tick + 1
+        assert all(after[k] > before[k] for k in after), (before, after)
+        x = sol.X[:, 1]
