@@ -6,8 +6,21 @@ sim/),
 with hand-written CUDA kernels for Hopper (csrc/) in place of the JAX
 package's Pallas TPU kernels.  The package never imports jax.
 
-Quick start (a batch of B scenarios; chip_smoke.py drives the same path
-at the bench operating point)::
+Quick start, the README's problem on the preset's own settings (the
+dense reference-layout backend, 'cond' adaptive rho, eps 1e-7), one
+scenario (B=1)::
+
+    import torch
+    from centroidal_mpc_tpu_torch import presets, solve_scp
+    from centroidal_mpc_tpu_torch.parallel.batch import tile_ocp_config
+
+    prob = presets.build_problem(presets.SOLO12_TROT, dtype=torch.float64)
+    X0, U0 = prob.X0[None], prob.U0[None]
+    cfg = tile_ocp_config(prob.ocp, X0[:, 0], X0[:, -1], X0)
+    sol = solve_scp(prob.model, prob.plan.schedule, cfg, X0, U0, prob.scp)
+
+A batch of B scenarios on the block backend (chip_smoke.py drives the
+same path at the bench operating point)::
 
     import dataclasses, torch
     from centroidal_mpc_tpu_torch.config import presets
@@ -54,4 +67,25 @@ and the Monte-Carlo push study (`sim/monte_carlo.run_monte_carlo`, with
                           n_sims=1024)
 """
 
+from centroidal_mpc_tpu_torch.config import gaits, presets, robots
+from centroidal_mpc_tpu_torch.contact.plan import (ContactPlan,
+                                                   ContactSchedule,
+                                                   build_contact_plan)
+from centroidal_mpc_tpu_torch.models.centroidal import (
+    CentroidalModel, TrajectoryData, compute_trajectory_data, dynamics_step,
+    rollout)
+from centroidal_mpc_tpu_torch.ops.admm import (QPSettings, QPSolution,
+                                               solve_qp)
+from centroidal_mpc_tpu_torch.solver.ocp import OcpConfig, QPData, build_qp
+from centroidal_mpc_tpu_torch.solver.scp import (ScpSettings, ScpSolution,
+                                                 solve_scp)
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "CentroidalModel", "ContactPlan", "ContactSchedule", "OcpConfig",
+    "QPData", "QPSettings", "QPSolution", "ScpSettings", "ScpSolution",
+    "TrajectoryData", "build_contact_plan", "build_qp",
+    "compute_trajectory_data", "dynamics_step", "gaits", "presets",
+    "robots", "rollout", "solve_qp", "solve_scp",
+]

@@ -169,10 +169,11 @@ def lqr_gain(model: CentroidalModel, A, B, n_iter: int = 2):
     P <- Q; repeat n_iter: P <- Q + A'PA - A'PB (R + B'PB)^-1 B'PA;
     K = -(R + B'PB)^-1 B'PA.  A (..., nx, nx), B (..., nx, nu) ->
     K (..., nu, nx); every leading index is an independent problem, all
-    solved by one `ops.lqr_kernel.lqr_gain_batched` call."""
+    solved by one `ops.lqr_kernel.lqr_gain_batched` launch, through the
+    differentiable `ops.lqr_kernel.lqr_gain`."""
     nx, nu = A.shape[-1], B.shape[-1]
     lead = A.shape[:-2]
-    K = lqr_kernel.lqr_gain_batched(
+    K = lqr_kernel.lqr_gain(
         model.Q, model.R, A.reshape(-1, nx, nx).contiguous(),
         B.reshape(-1, nx, nu).contiguous(), n_iter=n_iter)
     return K.reshape(lead + (nu, nx))

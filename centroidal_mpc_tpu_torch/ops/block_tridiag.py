@@ -213,6 +213,45 @@ def solve_batched(fac: TridiagFactor, b: torch.Tensor) -> torch.Tensor:
     return backward_sweep(fac, forward_sweep(fac, b))
 
 
+def affine_sweep_assoc(P: torch.Tensor, c: torch.Tensor,
+                       reverse: bool) -> torch.Tensor:
+    """All-prefix solution of v_k = c_k - P_k v_{k-1} (or, reversed,
+    v_k = c_k - P_k v_{k+1}) by Hillis-Steele doubling over the knot
+    axis: element k is the affine map (A_k, b_k) = (-P_k, c_k), the
+    boundary element carries A = 0, and step d composes each element
+    with the one d knots before it (after, when reversed), in
+    ceil(log2(N+1)) batched steps of (B, N+1, V, V) products.  The
+    counterpart of the JAX package's `_affine_sweep_assoc` (an XLA
+    associative scan): more operations than the sequential sweep, far
+    fewer dependent steps.  P (B, N, V, V), c (B, N+1, V) -> (B, N+1, V)."""
+    zero = torch.zeros_like(P[:, :1])
+    A = torch.cat([-P, zero], 1) if reverse else torch.cat([zero, -P], 1)
+    b = c
+    n1, d = c.shape[1], 1
+    while d < n1:
+        if reverse:     # element k takes element k + d as its input
+            a_in, b_in = A[:, d:], b[:, d:]
+            A_new = torch.cat([A[:, :-d] @ a_in, A[:, -d:]], 1)
+            b_new = torch.cat([_matvec(A[:, :-d], b_in) + b[:, :-d],
+                               b[:, -d:]], 1)
+        else:           # element k takes element k - d as its input
+            a_in, b_in = A[:, :-d], b[:, :-d]
+            A_new = torch.cat([A[:, :d], A[:, d:] @ a_in], 1)
+            b_new = torch.cat([b[:, :d], _matvec(A[:, d:], b_in)
+                               + b[:, d:]], 1)
+        A, b, d = A_new, b_new, 2 * d
+    return b
+
+
+def solve_assoc(fac: TridiagFactor, b: torch.Tensor) -> torch.Tensor:
+    """Solve M w = b with both sweeps as log-depth doubling scans (plain
+    PyTorch on every device, as the JAX package's 'assoc' sweep is XLA):
+    the same factor, no sweep kernel launched."""
+    v = affine_sweep_assoc(fac.Pfwd, _matvec(fac.Cinv, b), reverse=False)
+    return affine_sweep_assoc(fac.Pbwd, _matvec(fac.Cinv.mT, v),
+                              reverse=True)
+
+
 # ---------------------------------------------------------------------------
 # work per launch (for bounds): each input read once, each output written
 # once, and the floating-point operations of the kernel's arithmetic

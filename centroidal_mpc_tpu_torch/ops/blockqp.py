@@ -2,13 +2,16 @@
 
 Port of `centroidal_mpc_tpu/ops/blockqp.py` (`build_block_qp` with the
 chance back-offs, and `_admm_loop_batched` with fixed or adaptive rho
-and its refinement polish).  The QP is the
+and its refinement polish, with the 'cholesky'/'pallas' or 'thomas'
+factor and the 'scan' or 'assoc' sweep).  The QP is the
 same OSQP-form problem: decision variables per knot W = (N+1, V) with
 V = nx + nu + 1 (state, control, trust slack; the control slot of knot N
 is a padded dummy), the constraint operator applied as batched einsums,
 and the block-tridiagonal ADMM normal matrix M = P + sigma I +
 A' diag(rho) A factorized by `ops.block_tridiag` (CUDA kernels on the
-card, their plain versions on the CPU).
+card, their plain versions on the CPU) or, with factor_method='thomas',
+by the block-Thomas recursion below (plain PyTorch, as the JAX
+package's is XLA).
 
 Every tensor carries a leading scenario axis B; per-scenario scalars
 (residuals, step sizes, statuses) are (B,) tensors.  The JAX package runs
@@ -31,10 +34,14 @@ from centroidal_mpc_tpu_torch.ops.admm import (QPSettings, STATUS_MAX_ITER,
                                                STATUS_SOLVED,
                                                STATUS_PRIMAL_INFEASIBLE,
                                                STATUS_DUAL_INFEASIBLE)
-from centroidal_mpc_tpu_torch.ops.block_tridiag import (factor_batched,
+from centroidal_mpc_tpu_torch.ops.block_tridiag import (_matvec,
+                                                        factor_batched,
+                                                        solve_assoc,
                                                         solve_batched)
+from centroidal_mpc_tpu_torch.ops.linalg import spd_inverse
 from centroidal_mpc_tpu_torch.solver.ocp import (DYN_SLACK, INF, OcpConfig,
                                                  N_X, _chance_backoffs,
+                                                 per_lane, rotated_pyramid,
                                                  sign_enumeration_matrix)
 
 
@@ -81,12 +88,6 @@ class BlockQP:
         return self.B.shape[-1]
 
 
-def _per_lane(v, like: torch.Tensor) -> torch.Tensor:
-    """A scalar or (B,) value as a (B,) tensor of like's dtype/device."""
-    v = torch.as_tensor(v, dtype=like.dtype, device=like.device)
-    return v.expand(like.shape[0])
-
-
 def build_block_qp(model: CentroidalModel, schedule: ContactSchedule,
                    cfg: OcpConfig, X_prev: torch.Tensor,
                    U_prev: torch.Tensor, data: TrajectoryData, radius,
@@ -98,11 +99,7 @@ def build_block_qp(model: CentroidalModel, schedule: ContactSchedule,
     dtype, dev = X_prev.dtype, X_prev.device
     nb = X_prev.shape[0]
     nuc = model.n_u_per_contact
-    rot_pyr = torch.einsum("bri,kcji->bkcrj", cfg.pyramid,
-                           schedule.orientation)
-    rot_pyr = rot_pyr * schedule.logic[:, :, None, None]
-    if not cfg.fill_unilateral:
-        rot_pyr[..., 4, :] = 0.0
+    rot_pyr = rotated_pyramid(cfg, schedule)
     N, C = rot_pyr.shape[1], rot_pyr.shape[2]
     fric_ub = torch.zeros((nb, N, C, 5), dtype=dtype, device=dev)
     if cfg.stochastic:
@@ -125,7 +122,7 @@ def build_block_qp(model: CentroidalModel, schedule: ContactSchedule,
     penum = sign_enumeration_matrix(3, dtype, device=dev)
     r_dyn = (torch.einsum("bkij,bkj->bki", data.A, X_prev[:, :-1])
              + torch.einsum("bkij,bkj->bki", data.B, U_prev) - data.f)
-    radius = _per_lane(radius, X_prev)
+    radius = per_lane(radius, X_prev)
     return BlockQP(
         Wx=cfg.Wx, Wu=cfg.Wu, qx=qx,
         qt=torch.ones((nb, N + 1), dtype=dtype, device=dev),
@@ -135,7 +132,7 @@ def build_block_qp(model: CentroidalModel, schedule: ContactSchedule,
         final_u=(cfg.x_final if cfg.terminal_equality
                  else torch.full_like(cfg.x_final, INF)),
         G=G, fric_ub=fric_ub, cop_act=cop_act, cop_l=cop_l, cop_u=cop_u,
-        penum=penum, inv_omega=1.0 / _per_lane(weight, X_prev),
+        penum=penum, inv_omega=1.0 / per_lane(weight, X_prev),
         trust_ub=radius[:, None, None] + X_prev[..., 6:9] @ penum.T,
     )
 
@@ -461,8 +458,54 @@ def _unpack(W: torch.Tensor, nx: int, nu: int) -> WVars:
     return WVars(x=W[..., :nx], u=W[:, :-1, nx:nx + nu], t=W[..., -1])
 
 
-def _solve(fac, w: WVars, nx: int, nu: int) -> WVars:
-    return _unpack(solve_batched(fac, _pack(w, nx, nu)), nx, nu)
+class ThomasFactor(NamedTuple):
+    """Block-Thomas factorization with explicit Schur-complement inverses:
+    T_k = S_k^-1 with S_0 = D_0, S_k = D_k - O_{k-1} T_{k-1} O_{k-1}';
+    G_k = O_{k-1} T_{k-1} (forward coupling), H_k = T_k O_k' (backward).
+    The inverses come from the Newton-Schulz iteration of ops/linalg, as
+    in the JAX package (`_ThomasFactor`)."""
+
+    T: torch.Tensor    # (B, N+1, V, V)
+    G: torch.Tensor    # (B, N, V, V)
+    H: torch.Tensor    # (B, N, V, V)
+
+
+def thomas_factor(diag: torch.Tensor, off: torch.Tensor) -> ThomasFactor:
+    """The block-Thomas factor of every scenario's M, a plain loop over
+    the knots.  diag (B, N+1, V, V), off (B, N, V, V)."""
+    ts = [spd_inverse(diag[:, 0])]
+    for k in range(1, diag.shape[1]):
+        o = off[:, k - 1]
+        ts.append(spd_inverse(diag[:, k] - o @ ts[-1] @ o.mT))
+    T = torch.stack(ts, dim=1)
+    return ThomasFactor(T=T, G=off @ T[:, :-1], H=T[:, :-1] @ off.mT)
+
+
+def thomas_solve(f: ThomasFactor, b: torch.Tensor) -> torch.Tensor:
+    """Solve M w = b with the Thomas factor: forward elimination, one
+    knot-parallel application of T, backward substitution."""
+    ys = [b[:, 0]]
+    for k in range(1, b.shape[1]):
+        ys.append(b[:, k] - _matvec(f.G[:, k - 1], ys[-1]))
+    t = _matvec(f.T, torch.stack(ys, dim=1))
+    ws = [t[:, -1]]
+    for k in range(b.shape[1] - 2, -1, -1):
+        ws.append(t[:, k] - _matvec(f.H[:, k], ws[-1]))
+    return torch.stack(ws[::-1], dim=1)
+
+
+def _backend(settings: QPSettings):
+    """(factorize(diag, off), backsolve(factor, b)) of the settings'
+    factor_method and sweep_method."""
+    if settings.factor_method == "thomas":
+        return thomas_factor, thomas_solve
+    if settings.sweep_method == "assoc":
+        return factor_batched, solve_assoc
+    return factor_batched, solve_batched
+
+
+def _solve(backsolve, fac, w: WVars, nx: int, nu: int) -> WVars:
+    return _unpack(backsolve(fac, _pack(w, nx, nu)), nx, nu)
 
 
 def _applyP(s: _Scaled, w: WVars) -> WVars:
@@ -572,6 +615,7 @@ def _polish(s: _Scaled, settings: QPSettings, sigma: float, w: WVars,
     atol = settings.polish_active_tol
     ytol = 1e-12
     dtype, dev = s.sh.dtype, s.sh.device
+    factorize, backsolve = _backend(settings)
 
     def detect(z, y):
         masks, targets = [], []
@@ -599,7 +643,7 @@ def _polish(s: _Scaled, settings: QPSettings, sigma: float, w: WVars,
         mask, b_a = detect(Aw, y_p)
         rho_p = ZGroups(*(m.to(dtype) * beta for m in mask))
         diag, off = _assemble_blocks(s, rho_p, sigma)
-        fac_p = factor_batched(diag + dsig * eye, off)
+        fac_p = factorize(diag + dsig * eye, off)
 
         y_p = ZGroups(*(torch.where(m, yy, torch.zeros_like(yy))
                         for m, yy in zip(mask, y_p)))
@@ -609,7 +653,7 @@ def _polish(s: _Scaled, settings: QPSettings, sigma: float, w: WVars,
             rpy = ZGroups(*(rp - yy for rp, yy in zip(r_p, y_p)))
             rhs = _wmap(lambda pw, qq, at: -(pw + qq) + at,
                         _applyP(s, w_p), s.q, _apply_AT(s, rpy))
-            dw = _solve(fac_p, rhs, nx, nu)
+            dw = _solve(backsolve, fac_p, rhs, nx, nu)
             w_p = _wmap(lambda a, b: a + b, w_p, dw)
             Aw = _apply_A(s, w_p)
             y_p = ZGroups(*(yy + rr * (aa - bb) for yy, rr, aa, bb in
@@ -623,14 +667,15 @@ def _polish(s: _Scaled, settings: QPSettings, sigma: float, w: WVars,
 
         def S_op(v):
             vm = ZGroups(*(mf * vv for mf, vv in zip(maskf, v)))
-            out = _apply_A(s, _solve(fac_p, _apply_AT(s, vm), nx, nu))
+            out = _apply_A(s, _solve(backsolve, fac_p, _apply_AT(s, vm),
+                                         nx, nu))
             return ZGroups(*(mf * oo for mf, oo in zip(maskf, out)))
 
         for _ in range(max(settings.polish_cg_restarts, 1)):
             g = _wmap(lambda pw, qq, at, atl: pw + qq + at + atl,
                       _applyP(s, w_p), s.q, _apply_AT(s, y_p),
                       _apply_AT(s, y_lo))
-            rhs_cg = _apply_A(s, _solve(fac_p, g, nx, nu))
+            rhs_cg = _apply_A(s, _solve(backsolve, fac_p, g, nx, nu))
             r = ZGroups(*(-(mf * rr) for mf, rr in zip(maskf, rhs_cg)))
             dy = ZGroups(*(torch.zeros_like(v) for v in r))
             p = r
@@ -678,27 +723,28 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
     sigma, alpha = settings.sigma, settings.alpha
     n_segments = -(-settings.max_iter // settings.check_interval)
     max_it = n_segments * settings.check_interval
+    factorize, backsolve = _backend(settings)
 
     def refactor_lanes(rho_b, fac, lanes):
         """The factor of the given lanes at their new rho, scattered into
         the carried factor; the other lanes keep theirs."""
         diag, off = _assemble_blocks(s, _rho_groups(settings, rho_b, s),
                                      sigma)
-        sub = factor_batched(diag.index_select(0, lanes),
-                             off.index_select(0, lanes))
+        sub = factorize(diag.index_select(0, lanes),
+                        off.index_select(0, lanes))
         return type(fac)(*(f.index_copy(0, lanes, g)
                            for f, g in zip(fac, sub)))
 
     rho_b = torch.full((nb,), settings.rho, dtype=dtype, device=dev)
     rho_g = _rho_groups(settings, rho_b, s)
-    fac = factor_batched(*_assemble_blocks(s, rho_g, sigma))
+    fac = factorize(*_assemble_blocks(s, rho_g, sigma))
     refactors = torch.zeros(nb, dtype=torch.int32, device=dev)
 
     def admm_iter(w, z, y, rho_g, fac):
         rz_y = ZGroups(*(rr * zz - yy for zz, yy, rr in zip(z, y, rho_g)))
         rhs = _wmap(lambda ww, at, qq: sigma * ww + at - qq,
                     w, _apply_AT(s, rz_y), s.q)
-        w_t = _solve(fac, rhs, nx, nu)
+        w_t = _solve(backsolve, fac, rhs, nx, nu)
         z_t = _apply_A(s, w_t)
         w_new = _wmap(lambda wt, ww: alpha * wt + (1 - alpha) * ww, w_t, w)
         z_rel = _zmap(lambda zt, zz: alpha * zt + (1 - alpha) * zz, z_t, z)
@@ -833,17 +879,14 @@ class BlockQPSolution:
 
 
 def check_settings(settings: QPSettings) -> None:
-    """Raise for the solver modes the port does not have yet."""
+    """Raise ValueError for an unknown mode name."""
     if settings.adaptive_rho_mode not in ("always", "cond"):
         raise ValueError(
             f"unknown adaptive_rho_mode {settings.adaptive_rho_mode!r}")
-    if settings.factor_method == "thomas":
-        raise NotImplementedError("factor_method='thomas' is not ported")
-    if settings.factor_method not in ("cholesky", "pallas"):
+    if settings.factor_method not in ("cholesky", "pallas", "thomas"):
         raise ValueError(f"unknown factor_method {settings.factor_method!r}")
-    if settings.sweep_method != "scan":
-        raise NotImplementedError(
-            f"sweep_method={settings.sweep_method!r} is not ported")
+    if settings.sweep_method not in ("scan", "assoc"):
+        raise ValueError(f"unknown sweep_method {settings.sweep_method!r}")
 
 
 def solve_block_qp(qp: BlockQP, settings: QPSettings = QPSettings(),

@@ -13,6 +13,12 @@ Cholesky inverse (not the JAX package's f64 Newton-Schulz chain).  On a
 CPU tensor the wrapper runs it; on a CUDA tensor it launches the kernel
 or raises.  `launches` counts kernel launches.  What bounds the kernel on
 an H100 and how it is laid out is written at the top of the CUDA source.
+
+`lqr_gain` is the differentiable entry point: an autograd.Function whose
+forward is `lqr_gain_batched` (the kernel on the card) and whose backward
+is the derivative of the plain version, recomputed at the saved inputs.
+The JAX package has no backward kernel for the DARE (its exact back-off
+mode differentiates the f64 XLA route), so none is written here.
 """
 from __future__ import annotations
 
@@ -85,3 +91,37 @@ def lqr_gain_batched(Q: torch.Tensor, R: torch.Tensor, A: torch.Tensor,
                     nu, n_iter)
     launches["dare_lqr"] += 1
     return K
+
+
+class _DareGain(torch.autograd.Function):
+    """K = lqr_gain_batched(Q, R, A, B, n_iter) with the plain version's
+    vector-Jacobian product as its backward.  A ctypes launch leaves no
+    graph behind, so without this Function a derivative through the
+    kernel would silently miss the DARE's terms.  The backward is plain
+    PyTorch, so `torch.func.jacrev` can vmap it (generate_vmap_rule)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(Q, R, A, B, n_iter):
+        return lqr_gain_batched(Q, R, A, B, n_iter)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        Q, R, A, B, n_iter = inputs
+        ctx.save_for_backward(Q, R, A, B)
+        ctx.n_iter = n_iter
+
+    @staticmethod
+    def backward(ctx, gK):
+        _, vjp = torch.func.vjp(
+            lambda *qrab: lqr_gain_plain(*qrab, ctx.n_iter),
+            *ctx.saved_tensors)
+        return vjp(gK) + (None,)
+
+
+def lqr_gain(Q: torch.Tensor, R: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, n_iter: int = 2) -> torch.Tensor:
+    """`lqr_gain_batched`, differentiable in Q, R, A and B (by
+    torch.autograd and torch.func alike); the same values and launches."""
+    return _DareGain.apply(Q, R, A, B, n_iter)

@@ -13,15 +13,19 @@ model and the schedule has a leading B axis).  Like the vmapped JAX
 program, every iteration runs on all lanes and lanes whose loop condition
 is false keep their state; the loop ends when no lane is active.
 
-The block QP backend runs in both of the JAX package's modes.  With the
-reference's frozen linearization (`update_linearization=False`) the
-linearization, the LQR gains and the QP blocks are computed once, outside
-the loop.  With `update_linearization=True` (the proper GuSTO loop, which
-talos needs) every iteration linearizes, runs the DARE and builds the QP
-at each lane's current linearization trajectory X_lin, which moves to an
-accepted solution; the comparison trajectory X_cmp (the reference's
-prev_traj_dict) takes the old X_lin.  `qp_backend='dense'` raises
-NotImplementedError.
+Both QP backends run in both of the JAX package's modes: 'dense' (the
+preset default; `solver/ocp.build_qp` and `ops/admm.solve_qp` in the
+reference layout, warm-started from zeros and then from each lane's last
+(x, y)) and 'block' (`ops/blockqp`, warm-started from the linearization
+trajectory).  With the reference's frozen linearization
+(`update_linearization=False`) the linearization and the LQR gains are
+computed once, outside the loop (and the block backend's QP blocks too;
+the dense QP is rebuilt each iteration from each lane's radius and
+weight, as the JAX package does).  With `update_linearization=True` (the
+proper GuSTO loop, which talos needs) every iteration linearizes, runs
+the DARE and builds the QP at each lane's current linearization
+trajectory X_lin, which moves to an accepted solution; the comparison
+trajectory X_cmp (the reference's prev_traj_dict) takes the old X_lin.
 """
 from __future__ import annotations
 
@@ -35,8 +39,9 @@ from centroidal_mpc_tpu_torch.models.centroidal import (CentroidalModel,
                                                         compute_trajectory_data,
                                                         model_accuracy)
 from centroidal_mpc_tpu_torch.ops import blockqp
-from centroidal_mpc_tpu_torch.ops.admm import QPSettings
-from centroidal_mpc_tpu_torch.solver.ocp import N_X, OcpConfig
+from centroidal_mpc_tpu_torch.ops.admm import QPSettings, solve_qp
+from centroidal_mpc_tpu_torch.solver.ocp import (N_X, OcpConfig, build_qp,
+                                                 qp_dims)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +60,8 @@ class ScpSettings:
     convergence_threshold: float = 1e-3
     max_iterations: int = 10
     update_linearization: bool = False  # reference-compat default
-    # 'dense' (the reference-layout solver, not ported) or 'block'
+    # 'dense' = ops.admm on the assembled matrices (reference-layout
+    # path); 'block' = ops.blockqp structure-exploiting solver
     qp_backend: str = "dense"
     # spectral norm for the trust-region test: 'svd' (exact, the
     # reference's np.linalg.norm(A, 2)) or 'power' (10-step power iteration)
@@ -125,28 +131,35 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
     """Solve B SCP problems from initial trajectories X0 (B, N+1, nx),
     U0 (B, N, nu); cfg carries the leading B axis (`parallel.batch.
     tile_ocp_config`)."""
-    if settings.qp_backend != "block":
-        raise NotImplementedError(
-            f"qp_backend={settings.qp_backend!r} is not ported (use 'block')")
+    if settings.qp_backend not in ("dense", "block"):
+        raise ValueError(f"unknown qp_backend {settings.qp_backend!r}")
+    dense = settings.qp_backend == "dense"
     blockqp.check_settings(settings.qp)
     # before any product: the covariance is a chain of N products
     set_fp32_exact()
     nb, N = U0.shape[0], U0.shape[1]
     dtype, dev = X0.dtype, X0.device
     relin = settings.update_linearization
+    n_xu = N_X * (N + 1) + model.n_u * N
 
     def linearize(X, U, radius, weight):
         data = compute_trajectory_data(model, schedule, X, U,
                                        lqr_iters=settings.lqr_iters,
                                        with_covariance=cfg.stochastic)
-        return data, blockqp.build_block_qp(model, schedule, cfg, X, U,
-                                            data, radius, weight)
+        build = build_qp if dense else blockqp.build_block_qp
+        return data, build(model, schedule, cfg, X, U, data, radius, weight)
 
     if not relin:
         # frozen linearization: computed once, outside the loop (the
         # reference linearizes the initial trajectory every iteration)
-        data, qp_const = linearize(X0, U0, settings.trust_region_radius0,
-                                   settings.omega0)
+        if dense:
+            data = compute_trajectory_data(model, schedule, X0, U0,
+                                           lqr_iters=settings.lqr_iters,
+                                           with_covariance=cfg.stochastic)
+        else:
+            data, qp_const = linearize(X0, U0,
+                                       settings.trust_region_radius0,
+                                       settings.omega0)
 
     def full(v, dt=dtype):
         return torch.full((nb,), v, dtype=dt, device=dev)
@@ -163,13 +176,21 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
         qp_refactors=full(0, torch.int32),
         qp_ok=full(True, torch.bool), qp_status=full(0, torch.int32),
         rho=full(0.0), conv=full(0.0),
+    )
+    if dense:
+        # the flat reference layout, from zeros
+        n, segs = qp_dims(model, N)
+        c["warm_x"] = torch.zeros((nb, n), dtype=dtype, device=dev)
+        c["warm_y"] = torch.zeros((nb, sum(segs.values())), dtype=dtype,
+                                  device=dev)
+    else:
         # primal warm start from the linearization trajectory, duals
         # threaded across SCP iterations (OSQP warm_start=True)
-        warm_w=blockqp.WVars(x=X0, u=U0,
-                             t=torch.zeros((nb, N + 1), dtype=dtype,
-                                           device=dev)),
-        warm_y=blockqp.zero_zgroups(nb, N, schedule.n_contacts, dtype, dev),
-    )
+        c["warm_x"] = blockqp.WVars(x=X0, u=U0,
+                                    t=torch.zeros((nb, N + 1), dtype=dtype,
+                                                  device=dev))
+        c["warm_y"] = blockqp.zero_zgroups(nb, N, schedule.n_contacts,
+                                           dtype, dev)
 
     while True:
         # reference while condition (src/scp_solver.py:133-134) plus the
@@ -185,14 +206,24 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
         X_lin, U_lin = c["X_lin"], c["U_lin"]
         if relin:
             data, qp = linearize(X_lin, U_lin, radius, weight)
+        elif dense:
+            qp = build_qp(model, schedule, cfg, X_lin, U_lin, data, radius,
+                          weight)
         else:
             qp = dataclasses.replace(
                 qp_const, inv_omega=1.0 / weight,
                 trust_ub=(radius[:, None, None]
                           + X0[..., 6:9] @ qp_const.penum.T))
-        bsol = blockqp.solve_block_qp(qp, settings.qp, w0=c["warm_w"],
-                                      y0=c["warm_y"])
-        X_sol, U_sol = bsol.X, bsol.U
+        if dense:
+            sol = solve_qp(qp, settings.qp, x0=c["warm_x"], y0=c["warm_y"])
+            X_sol = sol.x[:, :N_X * (N + 1)].reshape(nb, N + 1, N_X)
+            U_sol = sol.x[:, N_X * (N + 1):n_xu].reshape(nb, N, model.n_u)
+            warm_x, warm_y = sol.x, sol.y
+        else:
+            sol = blockqp.solve_block_qp(qp, settings.qp, w0=c["warm_x"],
+                                         y0=c["warm_y"])
+            X_sol, U_sol = sol.X, sol.U
+            warm_x, warm_y = blockqp.WVars(x=X_sol, u=U_sol, t=sol.t), sol.y
 
         inside = (_matrix_norm2(X_sol - c["X_cmp"], settings.norm_method)
                   < radius)
@@ -200,7 +231,7 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
                              data)
         accurate = rho <= settings.rho1
         # a non-converged QP is never accepted; the loop also aborts
-        accept = inside & accurate & bsol.converged
+        accept = inside & accurate & sol.converged
         radius_new = torch.where(
             inside & ~accurate, radius * settings.beta_fail,
             torch.where(accept & (rho < settings.rho0),
@@ -228,12 +259,10 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
             X_acc=X_acc, U_acc=U_acc, K_acc=K_acc, Sigma_acc=Sigma_acc,
             radius=radius_new, weight=weight_new, it=c["it"] + 1,
             success=accept, accepted=c["accepted"] + accept.to(torch.int32),
-            qp_iters=c["qp_iters"] + bsol.iterations,
-            qp_refactors=c["qp_refactors"] + bsol.refactors,
-            qp_ok=c["qp_ok"] & bsol.converged, qp_status=bsol.status,
-            rho=rho, conv=conv,
-            warm_w=blockqp.WVars(x=X_sol, u=U_sol, t=bsol.t),
-            warm_y=bsol.y)
+            qp_iters=c["qp_iters"] + sol.iterations,
+            qp_refactors=c["qp_refactors"] + sol.refactors,
+            qp_ok=c["qp_ok"] & sol.converged, qp_status=sol.status,
+            rho=rho, conv=conv, warm_x=warm_x, warm_y=warm_y)
         # lanes whose loop condition is false keep their state
         c = {k: _tree.select(active, new[k], c[k]) for k in c}
 

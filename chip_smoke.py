@@ -41,12 +41,29 @@ Phases (the first four raise on failure, so the script exits non-zero):
                          status, QP iterations and launches, host time
                          p50/p99, one profiled tick's busy share, tick 0
                          against an f64 CPU solve of the same window;
+       dense/solo12_trot_n50
+                         the preset's own settings (dense reference-layout
+                         backend, 'cond' rho, eps 1e-7, SVD trust norm) in
+                         f64, B=8, against the f64 cache and the CPU;
+       dense/solo12_trot the README's quick-start problem (N=165) in f64,
+                         B=1, against the JAX package's f64 dense solve,
+                         and its first QP certified on the host;
+       assoc             the main path's point with the log-depth 'assoc'
+                         sweep, B=32: the factor kernel, no sweep kernel;
+       thomas/f64, /f32  the block-Thomas factor ('always' rho, eps
+                         1e-5), B=8, f64 against 'cholesky', f32 as data;
+       exact_backoffs    solver/stochastic's jacobians through the DARE
+                         kernel's autograd.Function, card against CPU;
+       server            cli.mpc_server_main: 3 published solves and the
+                         1 kHz control loop over the native runtime;
        monte_carlo       sim/monte_carlo.run_monte_carlo on the main
                          path's scenario-0 plan, 1024 sims, against the
                          same draws on the CPU, and the sim metrics.
      Each prints its launches, CUDA-event wall time, n_success and status
-     counts; every path runs even when an earlier one fails its gate, and
-     the script then exits non-zero without a result.
+     counts; each requires the kernels its path runs to launch and the
+     others not to (the dense path and 'thomas' launch only dare_lqr);
+     every path runs even when an earlier one fails its gate, and the
+     script then exits non-zero without a result.
 
 Output: a JSON line of per-kernel results, the nvidia-smi name/power-limit
 line, and as the last line {"ok": true, "device": {...}}.
@@ -62,20 +79,26 @@ import time
 import numpy as np
 import torch
 
-from centroidal_mpc_tpu_torch import _tree
-from centroidal_mpc_tpu_torch.config import presets
+from centroidal_mpc_tpu_torch import _tree, cli
+from centroidal_mpc_tpu_torch.config import gaits, presets
 from centroidal_mpc_tpu_torch.contact.terrain import DEBRIS_BY_GAIT
-from centroidal_mpc_tpu_torch.models.centroidal import linearize_step
+from centroidal_mpc_tpu_torch.models.centroidal import (
+    compute_trajectory_data, linearize_step)
 from centroidal_mpc_tpu_torch.ops import block_tridiag as bt
 from centroidal_mpc_tpu_torch.ops import cuda_lib
 from centroidal_mpc_tpu_torch.ops import lqr_kernel
-from centroidal_mpc_tpu_torch.ops.admm import QPSettings
+from centroidal_mpc_tpu_torch.ops.admm import QPSettings, solve_qp
+from centroidal_mpc_tpu_torch.ops.certify import certify_qp_solution
 from centroidal_mpc_tpu_torch.parallel.batch import (batched_solve,
                                                      tile_ocp_config)
+from centroidal_mpc_tpu_torch.runtime import native
 from centroidal_mpc_tpu_torch.sim import metrics
 from centroidal_mpc_tpu_torch.sim.monte_carlo import run_monte_carlo
 from centroidal_mpc_tpu_torch.solver.mpc import MpcController
+from centroidal_mpc_tpu_torch.solver.ocp import build_qp
 from centroidal_mpc_tpu_torch.solver.scp import set_fp32_exact
+from centroidal_mpc_tpu_torch.solver.stochastic import (apply_exact_backoffs,
+                                                        backoff_jacobians)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REF_CACHE = os.path.join(ROOT, "benchmarks", "ref_cache",
@@ -610,10 +633,11 @@ def ref_errors(sol, name):
             float(np.abs(sol.U[0].double().cpu().numpy() - ref["U"]).max()))
 
 
-def drive(path, prob, scp, batch, card, profile=False):
+def drive(path, prob, scp, batch, card, profile=False, kernels=None):
     """Solve `batch` scenarios of prob through parallel.batch.batched_solve
     once, timed by CUDA events, with the launch counts zeroed just before
-    and read just after; every kernel must have launched.  profile: one
+    and read just after; every kernel named in `kernels` (all when None)
+    must have launched, and no other.  profile: one
     more batch under torch.profiler for each kernel's device time and the
     device's busy share: all device time of that batch over the
     unprofiled batch's CUDA-event time (the profiler slows the host).
@@ -653,7 +677,10 @@ def drive(path, prob, scp, batch, card, profile=False):
               f"{int(sol.iterations[lane])}, qp_converged "
               f"{bool(sol.qp_converged[lane])}")
     for name, n in counts.items():
-        check(n > 0, f"{path}: kernel {name} was not launched")
+        if kernels is None or name in kernels:
+            check(n > 0, f"{path}: kernel {name} was not launched")
+        else:
+            check(n == 0, f"{path}: kernel {name} launched {n} times")
     check(bool(torch.isfinite(sol.X).all() and torch.isfinite(sol.U).all()
                and torch.isfinite(sol.K).all()
                and torch.isfinite(sol.Sigma).all()),
@@ -676,11 +703,16 @@ def drive(path, prob, scp, batch, card, profile=False):
             print(f"#   {path} profile: {name}: {calls[name]} calls, "
                   f"{n} device launches, {ms:.3f} ms in the batch "
                   f"({ms / max(calls[name], 1):.4f} ms per call)")
+        for k, (us, n) in sorted(per_name.items(),
+                                 key=lambda kv: -kv[1][0])[:4]:
+            print(f"#   {path} profile top: {us / 1e3:8.3f} ms {n:6d}x "
+                  f"{k[:80]}")
     return sol, rec
 
 
-def problem(preset, qp=QP, norm_method="power", **kw):
-    prob = presets.build_problem(preset, dtype=torch.float32, qp=qp,
+def problem(preset, qp=QP, norm_method="power", dtype=torch.float32,
+            **kw):
+    prob = presets.build_problem(preset, dtype=dtype, qp=qp,
                                  device="cuda", **kw)
     scp = dataclasses.replace(prob.scp, qp_backend="block",
                               norm_method=norm_method)
@@ -998,8 +1030,308 @@ def phase_monte_carlo(card, prob, sol):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the dense reference-layout path, the block solver's other backends, the
+# exact back-offs and the MPC server
+# ---------------------------------------------------------------------------
+
+N165_REF = "solo12_trot_09517e40f669.npz"
+JAX_DENSE_REF = os.path.join(ROOT, "tests", "data",
+                             "jax_dense_solo12_trot.npz")
+# card vs the JAX package's CPU solve, both f64 at equal iterations:
+# cuSOLVER's and LAPACK's round-off carried through the iterations
+JAX_PARITY = 1e-6
+DARE_ONLY = ("dare_lqr",)   # the dense path and 'thomas': no block kernel
+
+
+def lane_stats(sol):
+    """QP iterations and adaptive-rho refactors of every lane."""
+    return (sol.qp_iterations.tolist(), sol.qp_refactors.tolist())
+
+
+def phase_dense_n50(card):
+    """The README's solve on the N=50 bench problem: the preset's own
+    settings (dense backend, 'cond' rho, eps 1e-7, SVD trust norm) in
+    f64, B=8; scenario 0 against the f64 cache; the same batch through
+    the port on the CPU (data)."""
+    prob = presets.build_problem(presets.SOLO12_TROT_N50,
+                                 dtype=torch.float64, device="cuda")
+    check(prob.scp.qp_backend == "dense", "the preset is not dense")
+    sol, rec = drive("dense/solo12_trot_n50", prob, prob.scp, 8, card,
+                     profile=True, kernels=DARE_ONLY)
+    rec["x_err_inf"], rec["u_err_inf"] = ref_errors(
+        sol, os.path.basename(REF_CACHE))
+    rec["qp_iters"], rec["refactors"] = lane_stats(sol)
+    cpu = _tree.to_device(prob, "cpu")
+    X0, U0, cfg = scenarios(cpu, 8)
+    t0 = time.perf_counter()
+    ref = batched_solve(cpu.model, cpu.plan.schedule, cfg, X0, U0, cpu.scp)
+    rec["cpu_s"] = time.perf_counter() - t0
+    rec["card_vs_cpu_u"] = float((sol.U.cpu() - ref.U).abs().max())
+    rec["cpu_qp_iters"] = ref.qp_iterations.tolist()
+    print(f"# dense/solo12_trot_n50: scenario 0 x_err_inf "
+          f"{rec['x_err_inf']:.3e}, u_err_inf {rec['u_err_inf']:.3e}; QP "
+          f"iterations a lane {rec['qp_iters']} (CPU {rec['cpu_qp_iters']}),"
+          f" refactors {rec['refactors']}; card vs CPU max|dU| "
+          f"{rec['card_vs_cpu_u']:.3e} (data; the CPU took "
+          f"{rec['cpu_s']:.1f} s)")
+    check(rec["n_success"] == 8, f"dense n50: {rec['n_success']}/8")
+    check(rec["x_err_inf"] <= PARITY_BAR and rec["u_err_inf"] <= PARITY_BAR,
+          f"dense n50 parity: {rec['x_err_inf']}, {rec['u_err_inf']}")
+    return rec
+
+
+def phase_dense_n165(card):
+    """The README's quick-start problem (solo12_trot, N=165) on the
+    preset's settings in f64, B=1; then the first SCP iteration's dense
+    QP solved again on the card and certified on the host by ops/certify
+    (tests/test_certification.py's KKT gates).  The JAX package's own
+    dense solve misses the 1e-4 bar against the block-solver cache
+    (u_err 1.06e-4, certified gap 1.07e-4), so both are data here and the
+    gate is parity with the JAX package's f64 solve of the same problem
+    (JAX_DENSE_REF, scripts/jax_dense_reference.py): equal QP iterations,
+    X, U and the QP's x within JAX_PARITY."""
+    jref = np.load(JAX_DENSE_REF)
+    prob = presets.build_problem(presets.SOLO12_TROT, dtype=torch.float64,
+                                 device="cuda")
+    sol, rec = drive("dense/solo12_trot", prob, prob.scp, 1, card,
+                     kernels=DARE_ONLY)
+    rec["x_err_inf"], rec["u_err_inf"] = ref_errors(sol, N165_REF)
+    rec["qp_iters"], rec["refactors"] = lane_stats(sol)
+    rec["vs_jax_x"] = float(np.abs(sol.X[0].cpu().numpy() - jref["X"]).max())
+    rec["vs_jax_u"] = float(np.abs(sol.U[0].cpu().numpy() - jref["U"]).max())
+    print(f"# dense/solo12_trot: against the JAX package's f64 dense solve: "
+          f"max|dX| {rec['vs_jax_x']:.3e}, max|dU| {rec['vs_jax_u']:.3e}, "
+          f"QP iterations {rec['qp_iters']} (JAX "
+          f"{int(jref['scp_qp_iterations'])}), refactors "
+          f"{rec['refactors']}; x_err_inf {rec['x_err_inf']:.3e}, u_err_inf "
+          f"{rec['u_err_inf']:.3e} against {N165_REF} (data)")
+    check(rec["n_success"] == 1, "dense N=165: not solved")
+    check(rec["qp_iters"][0] == int(jref["scp_qp_iterations"]),
+          f"dense N=165: {rec['qp_iters']} QP iterations, JAX "
+          f"{int(jref['scp_qp_iterations'])}")
+    check(max(rec["vs_jax_x"], rec["vs_jax_u"]) <= JAX_PARITY,
+          f"dense N=165 vs JAX: {rec['vs_jax_x']}, {rec['vs_jax_u']}")
+
+    X0, U0, cfg = scenarios(prob, 1)
+    data = compute_trajectory_data(prob.model, prob.plan.schedule, X0, U0,
+                                   lqr_iters=prob.scp.lqr_iters,
+                                   with_covariance=False)
+    qp = build_qp(prob.model, prob.plan.schedule, cfg, X0, U0, data,
+                  prob.scp.trust_region_radius0, prob.scp.omega0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    qsol = solve_qp(qp, prob.scp.qp)
+    end.record()
+    torch.cuda.synchronize()
+    x = qsol.x[0].cpu().numpy()
+    t0 = time.perf_counter()
+    res = certify_qp_solution(*(getattr(qp, f)[0].cpu().numpy()
+                                for f in "PqAlu"),
+                              x, qsol.y[0].cpu().numpy())
+    n_xu = 9 * 166 + 12 * 165
+    gap = float(np.abs(x[:n_xu] - res.x[:n_xu]).max())
+    rec.update(qp_solve_ms=start.elapsed_time(end),
+               qp_solve_iters=int(qsol.iterations[0]),
+               qp_vs_jax=float(np.abs(x - jref["qp_x"]).max()),
+               certify_s=time.perf_counter() - t0,
+               stationarity=res.stationarity,
+               primal_violation=res.primal_violation,
+               comp_slack=res.comp_slack, certified_gap=gap)
+    print(f"# dense/solo12_trot certify: QP (n {qp.P.shape[-1]}, m "
+          f"{qp.A.shape[-2]}) solved on the card in "
+          f"{rec['qp_solve_iters']} iterations (JAX "
+          f"{int(jref['qp_iterations'])}), {rec['qp_solve_ms']:.1f} ms (CUDA"
+          f" events) [{card}], max|x - x_JAX| {rec['qp_vs_jax']:.3e}; host "
+          f"certifier: converged {res.converged} in {res.active_set_iters} "
+          f"active-set iterations, stationarity {res.stationarity:.2e}, "
+          f"primal violation {res.primal_violation:.2e}, complementary "
+          f"slackness {res.comp_slack:.2e} ({rec['certify_s']:.1f} s); "
+          f"ADMM-vs-certified X/U gap {gap:.3e} (data; JAX 1.0675e-04)")
+    check(bool(qsol.converged[0]), "dense N=165: the certified QP failed")
+    check(rec["qp_solve_iters"] == int(jref["qp_iterations"]),
+          "dense N=165: the QP's iterations differ from JAX's")
+    check(rec["qp_vs_jax"] <= JAX_PARITY,
+          f"dense N=165 QP vs JAX: {rec['qp_vs_jax']}")
+    check(res.converged, "certifier did not converge")
+    check(res.stationarity < 1e-8 and res.primal_violation < 1e-8,
+          f"certifier KKT: {res.stationarity}, {res.primal_violation}")
+    check(res.comp_slack < 1e-6, f"certifier slackness {res.comp_slack}")
+    return rec
+
+
+def phase_assoc(card):
+    """The main path's bench point with sweep_method='assoc' in f32,
+    B=32: tridiag_factor factors, the doubling scan sweeps, so the sweep
+    kernels stay at 0; QP iterations against a 'scan' run of the same
+    batch (data)."""
+    qp = dataclasses.replace(QP, sweep_method="assoc")
+    prob, scp = problem(presets.SOLO12_TROT_N50, qp=qp)
+    sol, rec = drive("assoc", prob, scp, 32, card, profile=True,
+                     kernels=("tridiag_factor", "dare_lqr"))
+    rec["x_err_inf"], rec["u_err_inf"] = ref_errors(
+        sol, os.path.basename(REF_CACHE))
+    X0, U0, cfg = scenarios(prob, 32)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    scan = batched_solve(prob.model, prob.plan.schedule, cfg, X0, U0,
+                         dataclasses.replace(scp, qp=QP))
+    end.record()
+    torch.cuda.synchronize()
+    rec["scan_wall_ms"] = start.elapsed_time(end)
+    rec["scan_mean_qp_iters"] = float(scan.qp_iterations.float().mean())
+    rec["assoc_vs_scan_u"] = float((sol.U - scan.U).abs().max())
+    print(f"# assoc: scenario 0 x_err_inf {rec['x_err_inf']:.3e}, u_err_inf "
+          f"{rec['u_err_inf']:.3e}; mean QP iterations {rec['mean_qp_iters']:.1f}"
+          f" ('scan' {rec['scan_mean_qp_iters']:.1f}); max|U_assoc - "
+          f"U_scan| {rec['assoc_vs_scan_u']:.3e}; the same batch with 'scan'"
+          f" {rec['scan_wall_ms']:.2f} ms (CUDA events, after the 'assoc' "
+          f"batch) (data)")
+    check(rec["n_success"] == 32, f"assoc: {rec['n_success']}/32")
+    check(rec["x_err_inf"] <= PARITY_BAR and rec["u_err_inf"] <= PARITY_BAR,
+          f"assoc parity: {rec['x_err_inf']}, {rec['u_err_inf']}")
+    return rec
+
+
+def phase_thomas(card):
+    """solo12_trot_n50 with factor_method='thomas', 'always' rho, eps 1e-5
+    (tests/test_sweep_backends.py's settings), B=8: in f64 gated against
+    a 'cholesky' run of the same batch; in f32 (whose convergence the JAX
+    package documents as broken) success and u_err are data.  The Thomas
+    factor is plain PyTorch: only the DARE launches a kernel."""
+    qp = QPSettings(eps_abs=1e-5, eps_rel=1e-5, max_iter=4000,
+                    adaptive_rho=True, adaptive_rho_mode="always",
+                    factor_method="thomas")
+    recs = []
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        prob, scp = problem(presets.SOLO12_TROT_N50, qp=qp, dtype=dtype)
+        sol, rec = drive(f"thomas/{tag}", prob, scp, 8, card,
+                         kernels=DARE_ONLY)
+        rec["x_err_inf"], rec["u_err_inf"] = ref_errors(
+            sol, os.path.basename(REF_CACHE))
+        print(f"# thomas/{tag}: scenario 0 x_err_inf {rec['x_err_inf']:.3e},"
+              f" u_err_inf {rec['u_err_inf']:.3e} (data)")
+        if dtype == torch.float64:
+            X0, U0, cfg = scenarios(prob, 8)
+            chol = batched_solve(prob.model, prob.plan.schedule, cfg, X0, U0,
+                                 dataclasses.replace(scp, qp=dataclasses.replace(
+                                     qp, factor_method="cholesky")))
+            rec["vs_cholesky_x"] = float((sol.X - chol.X).abs().max())
+            rec["vs_cholesky_u"] = float((sol.U - chol.U).abs().max())
+            print(f"# thomas/f64: against 'cholesky' on the same batch: "
+                  f"max|dX| {rec['vs_cholesky_x']:.3e}, max|dU| "
+                  f"{rec['vs_cholesky_u']:.3e}; mean QP iterations "
+                  f"{rec['mean_qp_iters']:.1f} ('cholesky' "
+                  f"{float(chol.qp_iterations.float().mean()):.1f})")
+            check(rec["n_success"] == 8, f"thomas f64: {rec['n_success']}/8")
+            check(rec["vs_cholesky_x"] <= PARITY_BAR
+                  and rec["vs_cholesky_u"] <= PARITY_BAR,
+                  f"thomas vs cholesky: {rec['vs_cholesky_x']}, "
+                  f"{rec['vs_cholesky_u']}")
+        recs.append(rec)
+    return recs
+
+
+def phase_exact_backoffs(card):
+    """The exact chance back-offs (solver/stochastic.py) on the tiny
+    stochastic problem of tests/test_stochastic_exact.py, f64, B=1: the
+    jacobians through the DARE kernel's autograd.Function on the card
+    against the CPU's, then the exact-mode QP solved by the dense
+    solve_qp on the card."""
+    gait = gaits.GaitSpec(gaits.TROT, step_length=0.0, step_height=0.05,
+                          step_knots=3, support_knots=2, nb_steps=1)
+    prob = presets.build_problem(
+        dataclasses.replace(presets.SOLO12_TROT, gait=gait), stochastic=True,
+        dtype=torch.float64, device="cuda")
+
+    def inputs(p):
+        X, U = p.X0[None], p.U0[None]
+        return (p.model, p.plan.schedule,
+                tile_ocp_config(p.ocp, X[:, 0], X[:, -1], X), X, U)
+
+    card_in = inputs(prob)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    b, jx, ju = backoff_jacobians(*card_in)
+    torch.cuda.synchronize()
+    jac_s = time.perf_counter() - t0
+    counts = launch_counts()
+    cb, cjx, cju = backoff_jacobians(*inputs(_tree.to_device(prob, "cpu")))
+    errs = [rel_err(a.cpu(), r) for a, r in ((b, cb), (jx, cjx), (ju, cju))]
+    model, schedule, cfg, X, U = card_in
+    data = compute_trajectory_data(model, schedule, X, U)
+    qp = apply_exact_backoffs(
+        build_qp(model, schedule, dataclasses.replace(cfg, stochastic=False),
+                 X, U, data, 100.0, 100.0), model, schedule, cfg, X, U)
+    qsol = solve_qp(qp, QPSettings(eps_abs=1e-6, eps_rel=1e-6))
+    torch.cuda.synchronize()
+    rec = dict(path="exact_backoffs", batch=1, horizon=prob.plan.horizon,
+               launches=counts, jacobian_s=jac_s, rel_err_b=errs[0],
+               rel_err_dX=errs[1], rel_err_dU=errs[2],
+               qp_iters=int(qsol.iterations[0]),
+               qp_status=int(qsol.status[0]), max_backoff=float(b.max()))
+    print(f"# exact_backoffs: N={prob.plan.horizon} B=1 f64: launches "
+          f"{counts}; jacobians {tuple(jx.shape)}, {tuple(ju.shape)} in "
+          f"{jac_s:.2f} s (host, synced) [{card}]; card vs CPU relative "
+          f"to max|.|: b {errs[0]:.2e}, dB/dX {errs[1]:.2e}, dB/dU "
+          f"{errs[2]:.2e}; exact-mode QP: status {rec['qp_status']} in "
+          f"{rec['qp_iters']} iterations")
+    check(float(b.max()) > 1e-6, "exact_backoffs: no active back-off")
+    check(max(errs) <= 1e-9, f"exact_backoffs: card vs CPU {errs}")
+    check(counts["dare_lqr"] > 0, "exact_backoffs: dare_lqr not launched")
+    check(bool(qsol.converged[0]), "exact_backoffs: the QP did not solve")
+    return rec
+
+
+def phase_server(card):
+    """cli.mpc_server_main on the card (solo12_trot_n50, dense backend,
+    f32): a solver thread publishing 3 solves over the native trajectory
+    bus and the 1 kHz control loop; the runtime library is built from the
+    repo's runtime/ sources.  Latency, lateness and tracking are data."""
+    torch.cuda.synchronize()
+    reset_counts()
+    stats = cli.mpc_server_main(["--ticks", "1000", "--resolves", "3"])
+    counts = launch_counts()
+    lib = native.library_path()
+    prob = presets.SOLO12_TROT_N50
+    want = min(1000, round(prob.horizon * prob.dt / prob.dt_ctrl))
+    st = np.array(stats["solve_times_s"]) * 1e3
+    err = np.array(stats["track_err"])
+    rec = dict(path="server", batch=1, horizon=prob.horizon,
+               launches=counts, n_success=sum(stats["successes"]),
+               solves=len(st), solve_min_ms=float(st.min()),
+               solve_mean_ms=float(st.mean()), ticks=stats["ticks"],
+               late_mean_us=stats["mean_late_ns"] / 1e3,
+               late_max_us=stats["max_late_ns"] / 1e3,
+               track_err_mean=float(err.mean()),
+               track_err_final=float(err[-1]))
+    print(f"# server: {rec['solves']} solves ({rec['n_success']} "
+          f"successful), latency min/mean {rec['solve_min_ms']:.1f}/"
+          f"{rec['solve_mean_ms']:.1f} ms (host); {rec['ticks']} ticks, "
+          f"wake-up lateness mean/max {rec['late_mean_us']:.1f}/"
+          f"{rec['late_max_us']:.1f} us; tracking error mean "
+          f"{rec['track_err_mean']:.4f}, final {rec['track_err_final']:.4f}"
+          f"; launches {counts}; runtime library "
+          f"{os.path.relpath(lib, ROOT)} [{card}]")
+    check(stats["device"] == "cuda", "server: not on the card")
+    check(rec["solves"] == 3 and rec["n_success"] == 3,
+          f"server: {rec['n_success']}/{rec['solves']} solves")
+    check(rec["ticks"] == want, f"server: {rec['ticks']} ticks, not {want}")
+    check(bool(np.isfinite(err).all()), "server: non-finite tracking")
+    check(lib.exists() and lib.is_relative_to(os.path.join(ROOT, "build")),
+          "server: the runtime library was not built in the checkout")
+    check(counts["dare_lqr"] >= 3, "server: dare_lqr not launched")
+    return rec
+
+
 PATHS = (phase_stochastic, phase_stochastic_stage, phase_presets,
-         phase_cond, phase_terrain, phase_mpc)
+         phase_cond, phase_terrain, phase_mpc, phase_dense_n50,
+         phase_dense_n165, phase_assoc, phase_thomas, phase_exact_backoffs,
+         phase_server)
 
 
 def main():

@@ -143,7 +143,13 @@ def test_build_block_qp_wrench6_matches_jax():
     assert_tree_close(to_np(tqp), to_np(jqp), rtol=1e-11, atol=1e-11)
 
 
-def test_unported_modes_raise():
+@pytest.mark.parametrize("fields", [
+    dict(factor_method="lu"), dict(sweep_method="parallel"),
+    dict(adaptive_rho_mode="sometimes")])
+def test_unknown_block_mode_names_raise(fields):
+    """'thomas' and 'assoc' run (tests/test_torch_sweeps.py); a factor,
+    sweep or adaptive-rho mode name the JAX package does not have raises
+    ValueError before any work."""
     from centroidal_mpc_tpu_torch.config import presets as tpresets
     from centroidal_mpc_tpu_torch.models.centroidal import (
         compute_trajectory_data as tdata)
@@ -155,7 +161,6 @@ def test_unported_modes_raise():
     data = tdata(p.model, p.plan.schedule, X, U, with_covariance=False)
     qp = tbq.build_block_qp(p.model, p.plan.schedule, cfg, X, U, data,
                             100.0, 100.0)
-    for fields in (dict(adaptive_rho=False, factor_method="thomas"),
-                   dict(adaptive_rho=False, sweep_method="assoc")):
-        with pytest.raises(NotImplementedError):
-            tbq.solve_block_qp(qp, qp_settings_pair(**fields)[1])
+    with pytest.raises(ValueError, match="unknown"):
+        tbq.solve_block_qp(qp, qp_settings_pair(adaptive_rho=False,
+                                                **fields)[1])

@@ -4,6 +4,8 @@ card run them (this file imports no JAX, so skip the JAX test conftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -329,3 +331,77 @@ def test_mpc_tick_launches_every_kernel(cuda):
         assert bool(sol.success[0]) and state.tick == tick + 1
         assert all(after[k] > before[k] for k in after), (before, after)
         x = sol.X[:, 1]
+
+
+def _mini_f64(device, **qp):
+    """solo12_trot_mini in f64 on `device`, B=1, with its block QP and
+    dense QP at the warm start."""
+    from centroidal_mpc_tpu_torch.config import presets
+    from centroidal_mpc_tpu_torch.models.centroidal import (
+        compute_trajectory_data)
+    from centroidal_mpc_tpu_torch.ops import blockqp
+    from centroidal_mpc_tpu_torch.parallel.batch import tile_ocp_config
+    from centroidal_mpc_tpu_torch.solver.ocp import build_qp
+    prob = presets.build_problem(presets.SOLO12_TROT_MINI,
+                                 dtype=torch.float64, device=device)
+    X, U = prob.X0[None], prob.U0[None]
+    cfg = tile_ocp_config(prob.ocp, X[:, 0], X[:, -1], X)
+    data = compute_trajectory_data(prob.model, prob.plan.schedule, X, U,
+                                   with_covariance=False)
+    args = (prob.model, prob.plan.schedule, cfg, X, U, data, 100.0, 100.0)
+    return build_qp(*args), blockqp.build_block_qp(*args)
+
+
+def test_dense_solve_on_card_matches_cpu(cuda):
+    """The dense solve_qp in f64 on the card and on the CPU: equal
+    iterations and statuses, x within 1e-8 of its scale (cuSOLVER's and
+    LAPACK's round-off differ)."""
+    from centroidal_mpc_tpu_torch.ops.admm import QPSettings, solve_qp
+    st = QPSettings(eps_abs=1e-6, eps_rel=1e-6, max_iter=3000)
+    card = solve_qp(_mini_f64(cuda)[0], st)
+    cpu = solve_qp(_mini_f64("cpu")[0], st)
+    assert bool(card.converged[0]) and bool(cpu.converged[0])
+    assert torch.equal(card.iterations.cpu(), cpu.iterations)
+    assert _rel(card.x.cpu(), cpu.x) < 1e-8
+
+
+def test_assoc_sweep_launches_factor_only(cuda):
+    """A block solve with sweep_method='assoc' on the card factors with
+    tridiag_factor and sweeps with the doubling scan: the sweep kernels
+    stay at 0, and X/U match the 'scan' solve of the same QP."""
+    from centroidal_mpc_tpu_torch.ops import blockqp
+    from centroidal_mpc_tpu_torch.ops.admm import QPSettings
+    qp = _mini_f64(cuda)[1]
+    st = QPSettings(eps_abs=1e-5, eps_rel=1e-5, max_iter=2000,
+                    adaptive_rho=False)
+    scan = blockqp.solve_block_qp(qp, st)
+    before = dict(bt.launches)
+    assoc = blockqp.solve_block_qp(
+        qp, dataclasses.replace(st, sweep_method="assoc"))
+    torch.cuda.synchronize()
+    assert bt.launches["tridiag_factor"] > before["tridiag_factor"]
+    assert bt.launches["tridiag_fwd"] == before["tridiag_fwd"]
+    assert bt.launches["tridiag_bwd"] == before["tridiag_bwd"]
+    assert torch.equal(assoc.iterations, scan.iterations)
+    assert _rel(assoc.U, scan.U) < 1e-8
+
+
+def test_dare_function_jacobian_on_card_matches_cpu(cuda):
+    """torch.func.jacrev through ops.lqr_kernel.lqr_gain on the card (the
+    forward launches dare_lqr, the backward differentiates the plain
+    version) equals the CPU's in f64."""
+    rng = np.random.default_rng(5)
+    A = np.eye(9) + 0.05 * rng.standard_normal((4, 9, 9))
+    B = 0.05 * rng.standard_normal((4, 9, 12))
+    Q, R = np.diag(rng.uniform(1, 10, 9)), np.diag(rng.uniform(0.1, 1, 12))
+
+    def jac(device):
+        args = [torch.as_tensor(a, device=device) for a in (Q, R, A, B)]
+        return torch.func.jacrev(lqr_kernel.lqr_gain, argnums=(2, 3))(
+            *args, 2)
+    count = lqr_kernel.launches["dare_lqr"]
+    card = jac(cuda)
+    torch.cuda.synchronize()
+    assert lqr_kernel.launches["dare_lqr"] > count
+    for g, r in zip(card, jac("cpu")):
+        assert _rel(g.cpu(), r) < 1e-9

@@ -109,22 +109,25 @@ def test_matrix_norm2_matches_jax(method):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12)
 
 
-def test_unported_scp_paths_raise():
-    """What the port still lacks raises, not runs: qp_backend='dense'
-    (the preset default) and the 'thomas' factor and 'assoc' sweep
-    settings of the block QP inside the SCP loop."""
+@pytest.mark.parametrize("qp_backend,field,value", [
+    ("nonesuch", None, None),
+    ("block", "factor_method", "lu"),
+    ("block", "sweep_method", "parallel")])
+def test_unknown_scp_mode_names_raise(qp_backend, field, value):
+    """Every backend and mode of the JAX package runs in the port, so what
+    stands where NotImplementedError stood is a ValueError for a name the
+    JAX package does not have either: an unknown qp_backend, and unknown
+    factor_method and sweep_method names of the QP inside the SCP loop."""
     prob = tpresets.build_problem(tpresets.SOLO12_TROT_MINI,
                                   dtype=torch.float64, device="cpu")
     X, U = prob.X0[None], prob.U0[None]
     cfg = tile_ocp_config(prob.ocp, X[:, 0], X[:, -1], X)
-    block = dataclasses.replace(prob.scp, qp_backend="block")
-    for scp in (prob.scp,
-                dataclasses.replace(block, qp=dataclasses.replace(
-                    block.qp, factor_method="thomas")),
-                dataclasses.replace(block, qp=dataclasses.replace(
-                    block.qp, sweep_method="assoc"))):
-        with pytest.raises(NotImplementedError):
-            batched_solve(prob.model, prob.plan.schedule, cfg, X, U, scp)
+    scp = dataclasses.replace(prob.scp, qp_backend=qp_backend)
+    if field is not None:
+        scp = dataclasses.replace(scp, qp=dataclasses.replace(
+            scp.qp, **{field: value}))
+    with pytest.raises(ValueError, match="unknown"):
+        batched_solve(prob.model, prob.plan.schedule, cfg, X, U, scp)
 
 
 def test_build_problem_defaults_to_the_card():
