@@ -65,6 +65,22 @@ and the Monte-Carlo push study (`sim/monte_carlo.run_monte_carlo`, with
     res = run_monte_carlo(prob.model, prob.plan.schedule, sol.X[0],
                           sol.U[0], sol.K[0], torch.Generator().manual_seed(0),
                           n_sims=1024)
+
+The motion pipeline (iLQR warm start, nominal SCP, whole-body tracking,
+stochastic SCP, Monte-Carlo; the JAX package's `pipeline.run_pipeline`)
+runs on the card, with the npz artifacts under the reference's names::
+
+    from centroidal_mpc_tpu_torch import run_pipeline
+    from centroidal_mpc_tpu_torch.utils.artifacts import ArtifactStore
+
+    res = run_pipeline(presets.SOLO12_TROT_N50, ArtifactStore("out"),
+                       stochastic=True, n_sims=1024)      # f32, kinematic
+    res = run_pipeline(presets.SOLO12_TROT_N50, ArtifactStore("out64"),
+                       dtype=torch.float64, whole_body_mode="ddp")
+    res.nominal.X[0], res.wb_traj.q, res.wb_ddp.TAU, res.eval_stats
+
+`device="cpu"` runs it on the CPU; the full-physics Monte-Carlo
+(`physics_sims > 0`) is not ported and raises.
 """
 
 from centroidal_mpc_tpu_torch.config import gaits, presets, robots
@@ -76,6 +92,7 @@ from centroidal_mpc_tpu_torch.models.centroidal import (
     rollout)
 from centroidal_mpc_tpu_torch.ops.admm import (QPSettings, QPSolution,
                                                solve_qp)
+from centroidal_mpc_tpu_torch.pipeline import PipelineResult, run_pipeline
 from centroidal_mpc_tpu_torch.solver.ocp import OcpConfig, QPData, build_qp
 from centroidal_mpc_tpu_torch.solver.scp import (ScpSettings, ScpSolution,
                                                  solve_scp)
@@ -84,8 +101,9 @@ __version__ = "0.1.0"
 
 __all__ = [
     "CentroidalModel", "ContactPlan", "ContactSchedule", "OcpConfig",
-    "QPData", "QPSettings", "QPSolution", "ScpSettings", "ScpSolution",
+    "PipelineResult", "QPData", "QPSettings", "QPSolution", "ScpSettings",
+    "ScpSolution",
     "TrajectoryData", "build_contact_plan", "build_qp",
     "compute_trajectory_data", "dynamics_step", "gaits", "presets",
-    "robots", "rollout", "solve_qp", "solve_scp",
+    "robots", "rollout", "run_pipeline", "solve_qp", "solve_scp",
 ]

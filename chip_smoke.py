@@ -56,14 +56,31 @@ Phases (the first four raise on failure, so the script exits non-zero):
                          kernel's autograd.Function, card against CPU;
        server            cli.mpc_server_main: 3 published solves and the
                          1 kHz control loop over the native runtime;
+       pipeline/f64      pipeline.run_pipeline on solo12_trot_n50 in
+                         f64 with the whole-body DDP stage 3 (nq 18, nv
+                         18), 64 sims, held to the JAX package's run of
+                         the same call (tests/data/jax_pipeline_solo12_
+                         trot_n50.npz) at equal iteration counts, with
+                         each stage's host time and one DDP iteration's
+                         device launches and busy share;
+       pipeline/f32      the user default: f32, kinematic stage 3, 1024
+                         sims; both SCP stages solved, every artifact
+                         written, the warm start a rollout of itself;
+       whole_body_ddp/bolt  the 1-step bolt pace's whole-body DDP (V=12,
+                         a biped's KKT) with its JAX test's gates;
        monte_carlo       sim/monte_carlo.run_monte_carlo on the main
                          path's scenario-0 plan, 1024 sims, against the
                          same draws on the CPU, and the sim metrics.
      Each prints its launches, CUDA-event wall time, n_success and status
      counts; each requires the kernels its path runs to launch and the
-     others not to (the dense path and 'thomas' launch only dare_lqr);
+     others not to (the dense path and 'thomas' launch only dare_lqr; the
+     pipeline's SCP stages all four, the DARE at 2 and 30 steps, its
+     other stages and the bolt DDP none);
      every path runs even when an earlier one fails its gate, and the
-     script then exits non-zero without a result.
+     script then exits non-zero without a result.  The pipeline and bolt
+     paths run first, right after the kernel checks and before any
+     torch.profiler session (they are host-bound); one DDP iteration is
+     profiled last (`# pipeline/f64 DDP iteration`).
 
 Output: a JSON line of per-kernel results, the nvidia-smi name/power-limit
 line, and as the last line {"ok": true, "device": {...}}.
@@ -74,16 +91,22 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from centroidal_mpc_tpu_torch import _tree, cli
+from centroidal_mpc_tpu_torch import _tree, cli, pipeline
 from centroidal_mpc_tpu_torch.config import gaits, presets
+from centroidal_mpc_tpu_torch.config.robots import BOLT
+from centroidal_mpc_tpu_torch.contact.plan import build_contact_plan
+from centroidal_mpc_tpu_torch.contact.swing import compute_swing_trajectories
 from centroidal_mpc_tpu_torch.contact.terrain import DEBRIS_BY_GAIT
+from centroidal_mpc_tpu_torch.models import rigid_body as rb
+from centroidal_mpc_tpu_torch.models import whole_body_ddp as wbd
 from centroidal_mpc_tpu_torch.models.centroidal import (
-    compute_trajectory_data, linearize_step)
+    compute_trajectory_data, linearize_step, rollout)
 from centroidal_mpc_tpu_torch.ops import block_tridiag as bt
 from centroidal_mpc_tpu_torch.ops import cuda_lib
 from centroidal_mpc_tpu_torch.ops import lqr_kernel
@@ -94,11 +117,13 @@ from centroidal_mpc_tpu_torch.parallel.batch import (batched_solve,
 from centroidal_mpc_tpu_torch.runtime import native
 from centroidal_mpc_tpu_torch.sim import metrics
 from centroidal_mpc_tpu_torch.sim.monte_carlo import run_monte_carlo
+from centroidal_mpc_tpu_torch.solver.ddp import DdpSettings
 from centroidal_mpc_tpu_torch.solver.mpc import MpcController
 from centroidal_mpc_tpu_torch.solver.ocp import build_qp
 from centroidal_mpc_tpu_torch.solver.scp import set_fp32_exact
 from centroidal_mpc_tpu_torch.solver.stochastic import (apply_exact_backoffs,
                                                         backoff_jacobians)
+from centroidal_mpc_tpu_torch.utils.artifacts import ArtifactStore
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REF_CACHE = os.path.join(ROOT, "benchmarks", "ref_cache",
@@ -738,8 +763,9 @@ def phase_stochastic_stage(card):
     """Pipeline stage 2' as the f32 pipeline runs it
     (centroidal_mpc_tpu/pipeline.py:102-104, 167-190): solo12_trot
     (N=165), chance-constrained, 30 DARE steps, QP eps 1e-4, 'always'
-    rho, polish; B=8.  The warm start is the preset's analytic one: stage
-    1's iLQR warm start (ddp_warm_start) is not ported yet."""
+    rho, polish; B=8.  The warm start is the preset's analytic one, so
+    that the phase stays as it was measured before the iLQR warm start
+    was ported; `# pipeline/*` runs the stage from the iLQR warm start."""
     qp = QPSettings(eps_abs=1e-4, eps_rel=1e-4, max_iter=4000,
                     adaptive_rho=True, adaptive_rho_mode="always",
                     polish=True)
@@ -1328,10 +1354,382 @@ def phase_server(card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the motion pipeline (pipeline.run_pipeline) and the whole-body DDP
+# ---------------------------------------------------------------------------
+
+# the JAX package's float64 run of the f64 phase's call, its 1-step trot
+# DDP and its artifact manifest (scripts/jax_pipeline_reference.py)
+PIPELINE_REF = os.path.join(ROOT, "tests", "data",
+                            "jax_pipeline_solo12_trot_n50.npz")
+# card (f64, cuBLAS/cuSOLVER) vs the JAX package's CPU run at equal
+# iteration counts; the whole-body DDP's Q, V, TAU relative to their
+# largest entry (see phase_pipeline_f64)
+PIPELINE_TOL = 1e-6
+PIPELINE_SIMS = {torch.float64: 64, torch.float32: 1024}
+# the 1-step bolt pace of tests/test_whole_body_biped.py:191-196
+BOLT_GAIT = gaits.GaitSpec(gaits.PACE, step_length=0.0, step_height=0.04,
+                           step_knots=6, support_knots=3, nb_steps=1)
+WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
+
+
+class StageClock:
+    """Host time (synced) and launches of each stage of run_pipeline,
+    taken by wrapping the functions it calls for as long as the `with`
+    lasts; also the DARE step count of every `dare_lqr` launch."""
+
+    STAGES = ((pipeline, "ddp_warm_start_solution", "warm start"),
+              (pipeline, "_solve", None),
+              (pipeline.whole_body, "track_centroidal_solution",
+               "kinematic stage 3"),
+              (pipeline.wbd, "solve_whole_body_ddp", "DDP stage 3"),
+              (pipeline.monte_carlo, "run_monte_carlo", "Monte-Carlo"))
+
+    def __init__(self):
+        self.seconds, self.launches, self.dare_steps = {}, {}, []
+        self._saved = []
+
+    def _timed(self, fn, name):
+        def run(*args, **kw):
+            stage = name or ("stochastic SCP" if args[0].ocp.stochastic
+                             else "SCP")
+            torch.cuda.synchronize()
+            before = launch_counts()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds[stage] = (self.seconds.get(stage, 0.0)
+                                   + time.perf_counter() - t0)
+            counts = self.launches.setdefault(
+                stage, {k: 0 for k in before})
+            for k, n in launch_counts().items():
+                counts[k] += n - before[k]
+            return out
+        return run
+
+    def _dare(self, fn):
+        def run(Q, R, A, B, n_iter=2):
+            self.dare_steps.append(n_iter)
+            return fn(Q, R, A, B, n_iter)
+        return run
+
+    def __enter__(self):
+        for module, attr, name in self.STAGES:
+            fn = getattr(module, attr)
+            self._saved.append((module, attr, fn))
+            setattr(module, attr, self._timed(fn, name))
+        self._saved.append((lqr_kernel, "lqr_gain_batched",
+                            lqr_kernel.lqr_gain_batched))
+        lqr_kernel.lqr_gain_batched = self._dare(lqr_kernel.lqr_gain_batched)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in reversed(self._saved):
+            setattr(module, attr, fn)
+
+    def line(self):
+        return ", ".join(f"{k} {v:.2f} s" for k, v in self.seconds.items())
+
+
+def store_manifest(root):
+    """Every file of an artifact store: npz keys and shapes, .dat shape."""
+    out = {}
+    for name in sorted(os.listdir(root)):
+        path = os.path.join(root, name)
+        if name.endswith(".npz"):
+            with np.load(path) as f:
+                out[name] = {k: list(f[k].shape) for k in f.files}
+        else:
+            out[name] = {"rows_cols": list(np.loadtxt(path).shape)}
+    return out
+
+
+def run_pipeline_timed(dtype, whole_body_mode):
+    """run_pipeline on solo12_trot_n50 (stochastic, PIPELINE_SIMS[dtype]
+    Monte-Carlo sims) on the card into a fresh store under WORK_DIR, with
+    the launch counts zeroed just before and read just after: (result,
+    launches, the StageClock, the store's manifest, host seconds)."""
+    os.makedirs(WORK_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=WORK_DIR) as root, \
+            StageClock() as clock:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = pipeline.run_pipeline(
+            presets.SOLO12_TROT_N50, ArtifactStore(root), stochastic=True,
+            n_sims=PIPELINE_SIMS[dtype], dtype=dtype,
+            whole_body_mode=whole_body_mode)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        manifest = store_manifest(root)
+    return res, counts, clock, manifest, seconds
+
+
+def check_pipeline_launches(path, counts, clock):
+    """Both SCP stages run the block backend (all four kernels), the DARE
+    at 2 steps (stage 2) and 30 (stage 2'); no other stage launches a
+    kernel."""
+    for name, n in counts.items():
+        check(n > 0, f"{path}: kernel {name} was not launched")
+    for stage, launched in clock.launches.items():
+        if stage.endswith("SCP"):
+            for name, n in launched.items():
+                check(n > 0, f"{path}: {stage} launched no {name}")
+        else:
+            check(not any(launched.values()),
+                  f"{path}: {stage} launched {launched}")
+    check(set(clock.dare_steps) == {2, 30},
+          f"{path}: DARE steps {sorted(set(clock.dare_steps))}")
+
+
+def phase_ddp_iteration(card):
+    """One iteration of the pipeline's whole-body DDP on the card (solo12,
+    N=50, f64, targets from the JAX run's nominal SCP solution, which the
+    port's equals to ~1e-12): a 1-iteration solve less a 0-iteration solve
+    (the same set-up and extraction), each timed by CUDA events, then each
+    run under torch.profiler (after both timings: a profiled run slows
+    the host-bound launches after it): device launches, device busy ms,
+    wall ms, busy share.  Launches none of the four kernels."""
+    ref = np.load(PIPELINE_REF)
+    prob = presets.build_problem(presets.SOLO12_TROT_N50,
+                                 dtype=torch.float64, device="cuda")
+    dt_ctrl = presets.SOLO12_TROT_N50.dt_ctrl
+    targets = wbd.build_targets(
+        prob.plan, compute_swing_trajectories(prob.plan, dt_ctrl), dt_ctrl,
+        X_centroidal=ref["nom_X"], U_centroidal=ref["nom_U"])
+    spec = rb.solo12_spec()
+
+    def solve(n):
+        return lambda: wbd.solve_whole_body_ddp(
+            spec, targets, presets.SOLO12_TROT_N50.dt,
+            settings=DdpSettings(iterations=n, exact_quu=True))
+
+    solve(0)()              # warm: the set-up's first-call costs
+    torch.cuda.synchronize()
+    reset_counts()
+    wall = {}
+    for n in (0, 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        solve(n)()
+        end.record()
+        torch.cuda.synchronize()
+        wall[n] = start.elapsed_time(end)
+    counts = launch_counts()
+    device = {}
+    for n in (0, 1):
+        _, per_name, _ = profile_batch(solve(n))
+        device[n] = (sum(c for _, c in per_name.values()),
+                     sum(us for us, _ in per_name.values()) / 1e3)
+    events = device[1][0] - device[0][0]
+    busy_ms = device[1][1] - device[0][1]
+    wall_ms = wall[1] - wall[0]
+    rec = dict(path="pipeline/f64 DDP iteration", batch=1, horizon=50,
+               launches=counts, ddp_iteration_launches=events,
+               ddp_iteration_busy_ms=busy_ms, ddp_iteration_ms=wall_ms,
+               busy_share=busy_ms / wall_ms)
+    print(f"# pipeline/f64 DDP iteration: {events} device launches, "
+          f"device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms (busy share "
+          f"{busy_ms / wall_ms:.1%}; a 1-iteration solve less a 0-iteration "
+          f"solve, CUDA events, then torch.profiler) [{card}]")
+    check(events > 0 and busy_ms > 0, "DDP iteration: no device time")
+    check(not any(counts.values()), f"DDP iteration: launches {counts}")
+    return rec
+
+
+def phase_pipeline_f64(card):
+    """run_pipeline(SOLO12_TROT_N50, store, stochastic=True, n_sims=64,
+    dtype=float64, whole_body_mode="ddp") on the card (nq 18, nv 18, 12
+    joints, N=50), held to the JAX package's run of the same call
+    (PIPELINE_REF) at equal iteration counts: stage 1 (iLQR), stage 2
+    and 2' (SCP and QP iterations), the kinematic stage 3, the whole-body
+    DDP (iterations; cost 1e-8 relative; Q, V, TAU within PIPELINE_TOL of
+    their largest entry: the DDP stops at its 60-iteration cap in a flat
+    valley where, from its ~45th iteration, an accepted step lowers the
+    cost by ~1e-12, the acceptance threshold, so a round-off-sized merit
+    difference can accept one more step of ~1e-7; the cost agrees to
+    ~1e-14), the artifact files, keys and shapes.  Prints each stage's
+    host time (one DDP iteration's launches: phase_ddp_iteration)."""
+    ref = np.load(PIPELINE_REF)
+    res, counts, clock, manifest, seconds = run_pipeline_timed(
+        torch.float64, "ddp")
+    wb = res.wb_ddp
+
+    def err(a, key):
+        return float(np.abs(a.detach().cpu().numpy() - ref[key]).max())
+
+    errs = {"warm X": err(res.warm_X, "warm_X"),
+            "warm U": err(res.warm_U, "warm_U")}
+    iters = {"warm": (res.warm_ddp.iterations, int(ref["warm_iterations"])),
+             "DDP": (wb.iterations, int(ref["wb_iterations"]))}
+    for stage, key in (("nominal", "nom"), ("stochastic", "sto")):
+        sol = getattr(res, stage)
+        errs[f"{stage} X"] = err(sol.X[0], f"{key}_X")
+        errs[f"{stage} U"] = err(sol.U[0], f"{key}_U")
+        iters[f"{stage} SCP"] = (int(sol.iterations[0]),
+                                 int(ref[f"{key}_iterations"]))
+        iters[f"{stage} QP"] = (int(sol.qp_iterations[0]),
+                                int(ref[f"{key}_qp_iterations"]))
+    for f in ("q", "qdot", "tau_ff"):
+        errs[f"kinematic {f}"] = err(getattr(res.wb_traj, f), f"kin_{f}")
+    ddp_rel = {f: err(getattr(wb, f), f"wb_{f}")
+               / float(np.abs(ref[f"wb_{f}"]).max())
+               for f in ("Q", "V", "TAU")}
+    cost_rel = abs(float(wb.cost) - float(ref["wb_cost"])) / float(
+        ref["wb_cost"])
+    stats_finite = all(np.isfinite(v).all() for v in res.eval_stats.values())
+    manifest_ok = manifest == json.loads(str(ref["manifest"]))
+    print(f"# pipeline/f64: solo12_trot_n50 N=50 f64, whole-body DDP "
+          f"(nq {rb.solo12_spec().nq}, nv {rb.solo12_spec().nv}), 64 sims: "
+          f"{seconds:.2f} s (host, synced); stages: {clock.line()}; "
+          f"launches {counts}, by stage {clock.launches}; DARE steps "
+          f"{clock.dare_steps} [{card}]")
+    print(f"# pipeline/f64: iterations (card, JAX): {iters}; max abs err "
+          f"vs JAX: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; DDP Q/V/TAU err / max|.|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in ddp_rel.items())
+          + f", cost rel {cost_rel:.3e}; artifacts as the JAX run's: "
+          f"{manifest_ok}; Monte-Carlo stats finite: {stats_finite}")
+    print(f"# pipeline/f64: the whole-body DDP: {wb.iterations} iterations "
+          f"in {clock.seconds['DDP stage 3']:.2f} s (host, synced) [{card}]")
+    rec = dict(path="pipeline/f64", batch=1, horizon=50, launches=counts,
+               n_success=int(res.nominal.success[0])
+               + int(res.stochastic.success[0]), seconds=seconds,
+               stage_s=dict(clock.seconds), iterations=iters, errors=errs,
+               ddp_rel=ddp_rel, ddp_cost_rel=cost_rel)
+    check_pipeline_launches("pipeline/f64", counts, clock)
+    for k, (a, b) in iters.items():
+        check(a == b, f"pipeline/f64: {k} iterations {a} != JAX {b}")
+    for k, v in errs.items():
+        check(v <= PIPELINE_TOL, f"pipeline/f64: {k} err {v:.3e}")
+    for k, v in ddp_rel.items():
+        check(v <= PIPELINE_TOL, f"pipeline/f64: DDP {k} rel err {v:.3e}")
+    check(cost_rel <= 1e-8, f"pipeline/f64: DDP cost rel {cost_rel:.3e}")
+    check(manifest_ok, f"pipeline/f64: artifacts {manifest}")
+    check(stats_finite, "pipeline/f64: non-finite Monte-Carlo stats")
+    check(wb.Q.device.type == "cuda" and res.warm_X.device.type == "cuda",
+          "pipeline/f64: not on the card")
+    return rec
+
+
+def phase_pipeline_f32(card):
+    """The user default: run_pipeline(SOLO12_TROT_N50, store,
+    stochastic=True, n_sims=1024) in float32 with the kinematic stage 3
+    on the card.  Gates: both SCP stages solved, the JAX run's artifact
+    files written (the kinematic layout of wholeBody_interpolated_traj),
+    the warm start a rollout of itself (gap <= 1e-4 of max|X|); the
+    nominal's error against the JAX f64 run is data."""
+    ref = np.load(PIPELINE_REF)
+    res, counts, clock, manifest, seconds = run_pipeline_timed(
+        torch.float32, "kinematic")
+    prob = res.problem
+    X_roll = rollout(prob.model, prob.plan.schedule, res.warm_X[0],
+                     res.warm_U)
+    gap = float((X_roll - res.warm_X).abs().max()
+                / res.warm_X.abs().max())
+    u_err = float(np.abs(res.nominal.U[0].double().cpu().numpy()
+                         - ref["nom_U"]).max())
+    x_err = float(np.abs(res.nominal.X[0].double().cpu().numpy()
+                         - ref["nom_X"]).max())
+    files = set(json.loads(str(ref["manifest"])))
+    wb_keys = manifest.get("wholeBody_interpolated_traj.npz", {})
+    stats_finite = all(np.isfinite(v).all() for v in res.eval_stats.values())
+    print(f"# pipeline/f32: solo12_trot_n50 N=50 f32, kinematic stage 3, "
+          f"1024 sims: {seconds:.2f} s (host, synced); stages: "
+          f"{clock.line()}; launches {counts}, by stage {clock.launches}; "
+          f"DARE steps {clock.dare_steps}; success nominal "
+          f"{bool(res.nominal.success[0])} ({int(res.nominal.qp_iterations[0])}"
+          f" QP iterations), stochastic {bool(res.stochastic.success[0])} "
+          f"({int(res.stochastic.qp_iterations[0])}); warm start iLQR "
+          f"{res.warm_ddp.iterations} iterations, rollout gap {gap:.2e} of "
+          f"max|X|; nominal vs the JAX f64 run (data): u_err {u_err:.3e}, "
+          f"x_err {x_err:.3e} [{card}]")
+    rec = dict(path="pipeline/f32", batch=1, horizon=50, launches=counts,
+               n_success=int(res.nominal.success[0])
+               + int(res.stochastic.success[0]), seconds=seconds,
+               stage_s=dict(clock.seconds), warm_gap=gap, u_err=u_err,
+               x_err=x_err)
+    check_pipeline_launches("pipeline/f32", counts, clock)
+    check(bool(res.nominal.success[0]), "pipeline/f32: nominal failed")
+    check(bool(res.stochastic.success[0]), "pipeline/f32: stochastic failed")
+    check(set(manifest) == files, f"pipeline/f32: files {sorted(manifest)}")
+    check(set(wb_keys) == {"X", "U", "q", "qdot", "tau", "gains"},
+          f"pipeline/f32: wholeBody_interpolated_traj keys {wb_keys}")
+    check(gap <= 1e-4, f"pipeline/f32: warm start rollout gap {gap:.2e}")
+    check(stats_finite, "pipeline/f32: non-finite Monte-Carlo stats")
+    return rec
+
+
+def phase_whole_body_bolt(card):
+    """solve_whole_body_ddp on the card for the 1-step bolt pace of
+    tests/test_whole_body_biped.py:191-196 (f64, dt 0.01, 30 iterations,
+    exact Quu; V = 12 and a biped's KKT), with that test's gates: stance
+    feet within 0.02 and the CoM height within 0.05 of their targets.  No
+    kernel runs on this path."""
+    plan = build_contact_plan(BOLT, BOLT_GAIT, 0.01, dtype=torch.float64,
+                              device="cuda")
+    targets = wbd.build_targets(plan, compute_swing_trajectories(plan, 0.001),
+                                0.001)
+    spec = rb.bolt_spec()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sol = wbd.solve_whole_body_ddp(
+        spec, targets, 0.01, settings=DdpSettings(iterations=30,
+                                                  exact_quu=True))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    mask = targets.contact_mask[:, :, None]
+    err = (sol.feet[:-1] - targets.foot_target).abs()
+    stance_err = float((err * mask).max())
+    com_z_err = float((sol.com[:, 2] - targets.com_target[:, 2]).abs().max())
+    ds = targets.contact_mask.sum(1) == 2
+    fz = float(sol.forces[ds][:, :, 2].sum(1).mean())
+    rec = dict(path="whole_body_ddp/bolt", batch=1, horizon=plan.horizon,
+               launches=counts, iterations=sol.iterations, seconds=seconds,
+               cost=float(sol.cost), stance_err=stance_err,
+               com_z_err=com_z_err)
+    print(f"# whole_body_ddp/bolt: N={plan.horizon} f64, nv {spec.nv}: "
+          f"{sol.iterations} iterations, cost {float(sol.cost):.6g}, "
+          f"{seconds:.2f} s (host, synced); stance err {stance_err:.2e}, "
+          f"CoM z err {com_z_err:.2e}, double-support fz {fz:.2f} N "
+          f"(weight {spec.total_mass * rb.GRAVITY:.2f} N); launches "
+          f"{counts} [{card}]")
+    check(sol.Q.device.type == "cuda", "whole_body_ddp/bolt: not on the card")
+    check(bool(torch.isfinite(sol.Q).all()), "whole_body_ddp/bolt: non-finite")
+    check(stance_err < 0.02, f"whole_body_ddp/bolt: stance {stance_err}")
+    check(com_z_err < 0.05, f"whole_body_ddp/bolt: CoM z {com_z_err}")
+    check(not any(counts.values()), f"whole_body_ddp/bolt: launches {counts}")
+    return rec
+
+
 PATHS = (phase_stochastic, phase_stochastic_stage, phase_presets,
          phase_cond, phase_terrain, phase_mpc, phase_dense_n50,
          phase_dense_n165, phase_assoc, phase_thomas, phase_exact_backoffs,
          phase_server)
+# run before the main path's profile: the whole-body DDP is host-bound,
+# and its launches ran ~1.3x slower after a torch.profiler session on an
+# H100 (PERF.md section 5)
+WHOLE_BODY_PATHS = (phase_pipeline_f64, phase_pipeline_f32,
+                    phase_whole_body_bolt)
+
+
+def run_paths(phases, records, failed):
+    """Run (name, phase) pairs, each timed; a failed gate is recorded and
+    the remaining paths still run."""
+    for name, phase in phases:
+        t0 = time.perf_counter()
+        try:
+            out = phase()
+            records.extend(out if isinstance(out, list) else [out])
+        except Exception as e:  # noqa: BLE001 -- re-raised by main
+            failed.append(f"{name}: {type(e).__name__}: {e}")
+            print(f"# FAILED {failed[-1]}")
+        print(f"# {name}: {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -1341,6 +1739,11 @@ def main():
     results = phase_kernels()
     print(f"# environment, build and kernels: "
           f"{time.perf_counter() - t0:.1f} s")
+    # every path has its own gates; a failed gate fails the script after
+    # the remaining paths have run
+    records, failed = [], []
+    run_paths([(p.__name__, lambda p=p: p(card)) for p in WHOLE_BODY_PATHS],
+              records, failed)
     t0 = time.perf_counter()
     counts, solve, batch_ms, main_solution = phase_slice(card)
     in_path = phase_profile(solve, batch_ms)
@@ -1352,21 +1755,11 @@ def main():
         print(f"# share of bound {name}: {r['bound_ms'] / r['cold_ms']:.1%}"
               f" cold, {path:.1%} in the batch, "
               f"{r['bound_ms'] / r['ms']:.1%} warm (from L2)")
-    # every other path, each with its own gates; a failed gate fails the
-    # script after the remaining paths have run
-    records, failed = [], []
     phases = [(p.__name__, lambda p=p: p(card)) for p in PATHS]
     phases.append(("phase_monte_carlo",
                    lambda: phase_monte_carlo(card, *main_solution)))
-    for name, phase in phases:
-        t0 = time.perf_counter()
-        try:
-            out = phase()
-            records.extend(out if isinstance(out, list) else [out])
-        except Exception as e:  # noqa: BLE001 -- re-raised below
-            failed.append(f"{name}: {type(e).__name__}: {e}")
-            print(f"# FAILED {failed[-1]}")
-        print(f"# {name}: {time.perf_counter() - t0:.1f} s")
+    phases.append(("phase_ddp_iteration", lambda: phase_ddp_iteration(card)))
+    run_paths(phases, records, failed)
     # the Monte-Carlo rollout launches no kernel: no launches entry
     by_path = {"main": counts, **{r["path"]: r["launches"] for r in records
                                   if "launches" in r}}

@@ -16,9 +16,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_leaves_jax_out():
     """(a) Every module of the port, the MPC controller, the sim package,
-    the exact back-offs, the certifier, the runtime bindings and the CLI
-    among them, imports without jax, flax or the JAX package entering
-    sys.modules."""
+    the exact back-offs, the certifier, the runtime bindings, the CLI, the
+    whole-body modules, the DDP and the pipeline among them, imports
+    without jax, flax or the JAX package entering sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import centroidal_mpc_tpu_torch as p\n"
@@ -29,7 +29,15 @@ def test_import_leaves_jax_out():
         "walked = {n[len(p.__name__) + 1:] for n in names}\n"
         "missing = {'solver.mpc', 'sim', 'sim.monte_carlo',\n"
         "           'sim.metrics', 'solver.stochastic', 'ops.certify',\n"
-        "           'ops.linalg', 'runtime.native', 'cli'} - walked\n"
+        "           'ops.linalg', 'runtime.native', 'cli', 'pipeline',\n"
+        "           'solver.ddp', 'solver.warm_start', 'models.rigid_body',\n"
+        "           'models.whole_body_ddp', 'models.kinematics',\n"
+        "           'models.whole_body', 'contact.swing',\n"
+        "           'utils.polynomials', 'utils.interpolation',\n"
+        "           'utils.artifacts'} - walked\n"
+        "from centroidal_mpc_tpu_torch import run_pipeline\n"
+        "from centroidal_mpc_tpu_torch.solver.warm_start import (\n"
+        "    ddp_warm_start)\n"
         "assert not missing, missing\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"

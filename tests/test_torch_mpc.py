@@ -178,3 +178,93 @@ def test_four_chained_fixed_rho_ticks_match_jax():
     jprob, jctrl, tctrl, X0, U0 = _controllers(FIXED_QP)
     _chained_ticks(jprob, jctrl, jax.jit(jctrl.step), tctrl, X0, U0, 4,
                    1e-8)
+
+
+# ---------------------------------------------------------------------------
+# closed loop on the port alone (tests/test_mpc.py:17-100): the full trot
+# plan tracked from the port's own iLQR warm start
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def closed_loop():
+    """tests/test_mpc.py:17-36 on the port: MPC over the full trot plan
+    (solo12_trot, N=165), tracking the port's dynamically consistent
+    ddp_warm_start, f64, fixed rho at eps 1e-5, block backend, free
+    terminal state, window 20."""
+    from centroidal_mpc_tpu_torch.config import presets as tpresets
+    from centroidal_mpc_tpu_torch.ops.admm import QPSettings
+    from centroidal_mpc_tpu_torch.solver.warm_start import ddp_warm_start
+
+    prob0 = tpresets.build_problem(tpresets.SOLO12_TROT, dtype=torch.float64,
+                                   device="cpu")
+    X_warm, U_warm = ddp_warm_start(prob0.model, prob0.plan.schedule,
+                                    tpresets.SOLO12_TROT.robot)
+    prob = tpresets.build_problem(tpresets.SOLO12_TROT, dtype=torch.float64,
+                                  X_warm=X_warm, U_warm=U_warm, device="cpu")
+    X0, U0 = prob.X0[None], prob.U0[None]
+    cfg = dataclasses.replace(tile_ocp_config(prob.ocp, X0[:, 0], X0[:, -1],
+                                              X0), terminal_equality=False)
+    settings = dataclasses.replace(
+        prob.scp, qp_backend="block",
+        qp=QPSettings(eps_abs=1e-5, eps_rel=1e-5, max_iter=4000,
+                      adaptive_rho=False))
+    ctrl = tmpc.MpcController(model=prob.model, schedule=prob.plan.schedule,
+                              cfg=cfg, settings=settings, window=WINDOW)
+    return prob, ctrl, X0, U0
+
+
+def _plant(prob, x, u, k):
+    from centroidal_mpc_tpu_torch.models.centroidal import dynamics_step
+    s = prob.plan.schedule
+    return dynamics_step(prob.model, x, u, s.position[k], s.logic[k],
+                         s.orientation[k])
+
+
+def test_closed_loop_rolls_through_the_plan(closed_loop):
+    """tests/test_mpc.py:39-57: 30 ticks, each solved, the first control
+    applied through the true dynamics; the closed loop stays within 0.1
+    of the reference path and no QP hits its iteration cap."""
+    prob, ctrl, X0, U0 = closed_loop
+    state = ctrl.init_state(X0, U0)
+    x = prob.X0[0]
+    qp_iters = []
+    for i in range(30):
+        state, sol = ctrl.step(state, x[None])
+        assert bool(sol.success[0]), f"tick {i}"
+        qp_iters.append(int(sol.qp_iterations[0]))
+        x = _plant(prob, x, sol.U[0, 0], i)
+    assert float(torch.linalg.norm(x - prob.ocp.X_track[30])) < 0.1
+    assert max(qp_iters) < 4000
+
+
+def test_closed_loop_rejects_a_disturbance(closed_loop):
+    """tests/test_mpc.py:60-88: a lateral momentum kick of 0.3 at tick 8
+    decays at the QP's optimal rate: visible (> 0.25), below 0.65 of its
+    peak after 40 ticks, and monotone after it settles."""
+    prob, ctrl, X0, U0 = closed_loop
+    state = ctrl.init_state(X0, U0)
+    x = prob.X0[0].clone()
+    mom_err = []
+    for i in range(40):
+        if i == 8:
+            x = x + torch.tensor([0, 0, 0, 0, 0.3, 0, 0, 0, 0],
+                                 dtype=x.dtype)
+        state, sol = ctrl.step(state, x[None])
+        assert bool(sol.success[0])
+        x = _plant(prob, x, sol.U[0, 0], i)
+        mom_err.append(float((x[4] - prob.ocp.X_track[i + 1, 4]).abs()))
+    peak = max(mom_err[8:12])
+    assert peak > 0.25
+    assert mom_err[-1] < 0.65 * peak
+    tail = mom_err[12:]
+    assert all(b <= a + 1e-6 for a, b in zip(tail, tail[1:]))
+
+
+def test_closed_loop_tick_clamps_at_plan_end(closed_loop):
+    """tests/test_mpc.py:91-97."""
+    prob, ctrl, X0, U0 = closed_loop
+    state = dataclasses.replace(ctrl.init_state(X0, U0), tick=ctrl.max_tick)
+    new_state, sol = ctrl.step(state, X0[:, 0])
+    assert new_state.tick == ctrl.max_tick
+    assert bool(sol.success[0])

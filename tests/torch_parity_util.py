@@ -6,6 +6,7 @@ settings dicts, and handed to the port through
 problem.  Random inputs come from numpy generators with fixed seeds.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +27,11 @@ from centroidal_mpc_tpu_torch.ops.admm import QPSettings
 from centroidal_mpc_tpu_torch.parallel.batch import tile_ocp_config
 from centroidal_mpc_tpu_torch.solver.ocp import OcpConfig
 from centroidal_mpc_tpu_torch.solver.scp import ScpSettings
+
+# the JAX package's float64 motion pipeline on solo12_trot_n50 and its
+# 1-step trot whole-body DDP (scripts/jax_pipeline_reference.py)
+PIPELINE_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "data", "jax_pipeline_solo12_trot_n50.npz")
 
 # One intra-op thread for the port's CPU computations: their tensors are
 # tiny (B <= 4 scenarios of 22 x 22 blocks), so threads buy nothing alone,
