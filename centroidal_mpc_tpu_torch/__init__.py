@@ -79,8 +79,11 @@ runs on the card, with the npz artifacts under the reference's names::
                        dtype=torch.float64, whole_body_mode="ddp")
     res.nominal.X[0], res.wb_traj.q, res.wb_ddp.TAU, res.eval_stats
 
-`device="cpu"` runs it on the CPU; the full-physics Monte-Carlo
-(`physics_sims > 0`) is not ported and raises.
+`physics_sims=64` adds the full-physics Monte-Carlo (`sim/physics.py`,
+the PyBullet role: 1 kHz rigid-body episodes under pushes, with
+`terrain=` on the stepstones too), and `device="cpu"` runs it all on the
+CPU.  The command line runs the same pipeline with its figures and HTML
+preview (`python -m centroidal_mpc_tpu_torch.cli run-motion [--cpu]`).
 """
 
 from centroidal_mpc_tpu_torch.config import gaits, presets, robots

@@ -1,13 +1,20 @@
 """Command-line entry points of the port.
 
+    python -m centroidal_mpc_tpu_torch.cli run-motion [--preset NAME]
+        [--sims N] [--physics-sims N] [--terrain flat|debris] [--out DIR]
+        [--nominal-only] [--whole-body kinematic|ddp] [--qp-backend
+        block|dense] [--no-preview] [--f64] [--cpu]
     python -m centroidal_mpc_tpu_torch.cli mpc-server [--preset NAME]
         [--ticks N] [--resolves N] [--cpu]
 
-Port of `mpc_server_main` from `centroidal_mpc_tpu/cli.py` (the
-`cmpc-server` demo): a solver thread publishes SCP plans over the native
-trajectory bus while a control thread samples it at the preset's control
-rate and steps the centroidal plant.  The solve runs on the card unless
---cpu is given; without a card and without --cpu it raises.
+Ports of `centroidal_mpc_tpu/cli.py`: `run_motion_main` (the
+`cmpc-run-motion` demo: the motion pipeline, its artifacts, figures and
+HTML preview) and `mpc_server_main` (the `cmpc-server` demo: a solver
+thread publishes SCP plans over the native trajectory bus while a control
+thread samples it at the preset's control rate and steps the centroidal
+plant).  Both run on the card unless --cpu is given; without a card and
+without --cpu they raise.  matplotlib is imported by run-motion's figures
+only, never when this module is imported.
 """
 from __future__ import annotations
 
@@ -21,11 +28,125 @@ import numpy as np
 import torch
 
 from centroidal_mpc_tpu_torch.config import presets
+from centroidal_mpc_tpu_torch.contact.swing import compute_swing_trajectories
+from centroidal_mpc_tpu_torch.contact.terrain import DEBRIS_BY_GAIT
 from centroidal_mpc_tpu_torch.models.centroidal import dynamics_step
 from centroidal_mpc_tpu_torch.ops.admm import QPSettings
 from centroidal_mpc_tpu_torch.parallel.batch import tile_ocp_config
+from centroidal_mpc_tpu_torch.pipeline import PipelineResult, run_pipeline
 from centroidal_mpc_tpu_torch.runtime import native
+from centroidal_mpc_tpu_torch.sim.preview import write_motion_preview
 from centroidal_mpc_tpu_torch.solver.scp import solve_scp
+from centroidal_mpc_tpu_torch.utils.artifacts import ArtifactStore
+
+
+def _device(flag_cpu: bool, command: str) -> str:
+    """The card unless --cpu is given; without a card and without --cpu,
+    raise."""
+    if not flag_cpu and not torch.cuda.is_available():
+        raise RuntimeError(f"{command}: no CUDA device; pass --cpu to run "
+                           "on the CPU")
+    return "cpu" if flag_cpu else "cuda"
+
+
+def run_motion_main(argv=None) -> PipelineResult:
+    """End-to-end motion demo: warm start -> nominal SCP -> stochastic SCP
+    -> Monte-Carlo evaluation -> artifacts + plots + HTML motion preview.
+    Returns the pipeline's result."""
+    ap = argparse.ArgumentParser(prog="run-motion",
+                                 description=run_motion_main.__doc__)
+    ap.add_argument("--preset", default="solo12_trot")
+    ap.add_argument("--sims", type=int, default=16,
+                    help="Monte-Carlo rollouts (0 disables)")
+    ap.add_argument("--out", default="artifacts/demo")
+    ap.add_argument("--nominal-only", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU instead of the card")
+    ap.add_argument("--f64", action="store_true", help="float64")
+    ap.add_argument("--whole-body", choices=["kinematic", "ddp"],
+                    default="kinematic",
+                    help="stage-3 layer: closed-form IK or joint-space DDP "
+                         "over the rigid-body contact dynamics")
+    ap.add_argument("--physics-sims", type=int, default=0,
+                    help="full-physics Monte-Carlo episodes (0 disables)")
+    ap.add_argument("--qp-backend", choices=["block", "dense"],
+                    default="block",
+                    help="block = structure-exploiting production solver; "
+                         "dense = reference-layout path (slow at N=165)")
+    ap.add_argument("--terrain", choices=["flat", "debris"], default="flat",
+                    help="debris = the reference's per-gait stepstone "
+                         "terrain (GAIT='..._ON_DEBRI', "
+                         "src/simulate_solo.py:217-256): tilted footholds "
+                         "in the plan + stones in the physics plant")
+    ap.add_argument("--no-preview", action="store_true",
+                    help="skip the standalone HTML 3D motion preview")
+    args = ap.parse_args(argv)
+    device = _device(args.cpu, "run-motion")
+    from centroidal_mpc_tpu_torch.sim import plots
+
+    preset = presets.PRESETS[args.preset]
+    terrain = (DEBRIS_BY_GAIT[preset.gait.gait_type]
+               if args.terrain == "debris" else None)
+    store = ArtifactStore(args.out)
+    dtype = torch.float64 if args.f64 else torch.float32
+    kind = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
+    print(f"[pipeline] preset={preset.name} N={preset.horizon} "
+          f"device={kind} dtype={str(dtype).removeprefix('torch.')}")
+    result = run_pipeline(preset, store, stochastic=not args.nominal_only,
+                          n_sims=args.sims, dtype=dtype,
+                          whole_body_mode=args.whole_body,
+                          physics_sims=args.physics_sims,
+                          qp_backend=args.qp_backend, terrain=terrain,
+                          device=device)
+
+    nom = result.nominal
+    print(f"[nominal]   success={bool(nom.success[0])} "
+          f"scp_iters={int(nom.iterations[0])} "
+          f"qp_iters={int(nom.qp_iterations[0])} rho={float(nom.rho[0]):.2e}")
+    sto = result.stochastic
+    if sto is not None:
+        print(f"[stochastic] success={bool(sto.success[0])} "
+              f"scp_iters={int(sto.iterations[0])} "
+              f"qp_iters={int(sto.qp_iterations[0])}")
+    stats = result.eval_stats
+    if "nominal_violations" in stats:
+        print(f"[monte-carlo] sims={args.sims} nominal cone violations/sim="
+              f"{np.mean(stats['nominal_violations']):.1f}")
+    if result.wb_ddp is not None:
+        print(f"[whole-body ddp] cost={float(result.wb_ddp.cost):.3f} "
+              f"iters={int(result.wb_ddp.iterations)}")
+    if result.mc_physics is not None:
+        slip, fell = stats["physics_slippage"], stats["physics_fell"]
+        print(f"[physics mc] sims={args.physics_sims} "
+              f"fell={int(fell.sum())}/{len(fell)} "
+              f"slip mean={float(np.mean(slip)):.3f} m")
+
+    # figures
+    plots.plot_contact_forces(preset.robot.foot_names, nom.U[0],
+                              None if sto is None else sto.U[0], preset.dt,
+                              preset.mu, save_dir=args.out)
+    plots.plot_centroidal_trajectory(nom.X[0], result.warm_X, preset.dt,
+                                     save_dir=args.out)
+    if stats:
+        plots.plot_tracking_cost(stats, preset.dt, save_dir=args.out)
+    swing = compute_swing_trajectories(result.problem.plan, preset.dt_ctrl)
+    plots.plot_swing_trajectories(swing, preset.robot.foot_names,
+                                  preset.dt_ctrl, save_dir=args.out)
+    if "physics_slippage_series" in stats:
+        plots.plot_foot_slippage(
+            {"nominal": stats["physics_slippage_series"]}, preset.dt_ctrl,
+            save_dir=args.out)
+    wb = result.wb_traj
+    if wb is not None:
+        plots.plot_whole_body_solution(
+            wb.q, wb.qdot, wb.tau_ff, preset.dt_ctrl,
+            foot_names=preset.robot.foot_names, base_pos=wb.base_pos,
+            save_dir=args.out)
+    if not args.no_preview:
+        path = write_motion_preview(result, preset, args.out)
+        print(f"[preview] 3D motion preview: {path}")
+    print(f"[artifacts] written to {args.out}/")
+    return result
 
 
 def mpc_server_main(argv=None) -> dict:
@@ -44,10 +165,7 @@ def mpc_server_main(argv=None) -> dict:
     ap.add_argument("--cpu", action="store_true",
                     help="solve on the CPU instead of the card")
     args = ap.parse_args(argv)
-    device = "cpu" if args.cpu else "cuda"
-    if device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("mpc-server: no CUDA device; pass --cpu to run "
-                           "on the CPU")
+    device = _device(args.cpu, "mpc-server")
 
     preset = presets.PRESETS[args.preset]
     # f32 tolerances and fixed rho, as the JAX package's server runs them;
@@ -134,7 +252,7 @@ def mpc_server_main(argv=None) -> dict:
                 max_late_ns=stats["max_late_ns"], track_err=track_err)
 
 
-COMMANDS = {"mpc-server": mpc_server_main}
+COMMANDS = {"run-motion": run_motion_main, "mpc-server": mpc_server_main}
 
 
 def main(argv=None) -> int:

@@ -145,3 +145,15 @@ def build_contact_plan(robot: RobotSpec, gait: GaitSpec, dt: float,
                                orientation=t(orientation))
     return ContactPlan(robot=robot, gait=gait, dt=dt, phases=phases,
                        schedule=schedule)
+
+
+def interpolate_contact_positions(plan: ContactPlan,
+                                  dt_ctrl: float) -> torch.Tensor:
+    """((N-1) dt/dt_ctrl, C, 3) contact positions at the control rate,
+    zero while swinging, on the schedule's device: each of the first N-1
+    knots' placements repeated dt/dt_ctrl times (the reference's
+    interpolate_contact_trajectory, src/contact_plan.py:50-68)."""
+    n_inner = int(round(plan.dt / dt_ctrl))
+    sched = plan.schedule
+    gated = sched.position * sched.logic[..., None]
+    return gated[: plan.horizon - 1].repeat_interleave(n_inner, dim=0)

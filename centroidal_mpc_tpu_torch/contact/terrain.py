@@ -8,8 +8,9 @@ boxes, src/simulate_solo.py:55-75).  The contact-plan builder queries
 `Terrain.surface_at` to snap each foothold onto the highest covering
 surface, which gives the schedule raised contact points and rotated
 contact frames; the solver's friction pyramids rotate with them.  The
-dense plane set of the physics plant (`Terrain.arrays`) belongs to the
-simulation and is not ported.
+physics plant (sim/physics.py) collides against the same stones through
+`Terrain.arrays`: the planes as fixed-shape tensors on a device, flat
+ground first.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 def _rot_rp(roll: float, pitch: float) -> np.ndarray:
@@ -57,6 +59,17 @@ class Stepstone:
 
 
 @dataclasses.dataclass(frozen=True)
+class TerrainArrays:
+    """The surface planes of a terrain for the physics plant.  Row 0 is
+    the flat ground (half-extents 1e9); rows 1..S are the stones."""
+
+    p0: torch.Tensor        # (S+1, 3) a point on each surface plane
+    normal: torch.Tensor    # (S+1, 3) unit outward normal
+    rot: torch.Tensor       # (S+1, 3, 3) surface frame (columns t1, t2, n)
+    half: torch.Tensor      # (S+1, 2) footprint half-extents around p0 xy
+
+
+@dataclasses.dataclass(frozen=True)
 class Terrain:
     """Flat ground (z = 0, identity frame) plus optional stepstones."""
 
@@ -71,6 +84,27 @@ class Terrain:
                 if z > best_z:
                     best_z, best_r = z, stone.rotation()
         return best_z, best_r
+
+    def arrays(self, device, dtype: torch.dtype = torch.float64
+               ) -> TerrainArrays:
+        """The planes as tensors on `device` (built in float64 on the
+        host, then cast to `dtype`)."""
+        s = len(self.stones)
+        p0 = np.zeros((s + 1, 3))
+        normal = np.zeros((s + 1, 3))
+        rot = np.zeros((s + 1, 3, 3))
+        half = np.zeros((s + 1, 2))
+        normal[0] = (0.0, 0.0, 1.0)
+        rot[0] = np.eye(3)
+        half[0] = (1e9, 1e9)
+        for i, stone in enumerate(self.stones, start=1):
+            p0[i] = (stone.center[0], stone.center[1], stone.height)
+            r = stone.rotation()
+            rot[i] = r
+            normal[i] = r[:, 2]
+            half[i] = (0.5 * stone.size[0], 0.5 * stone.size[1])
+        return TerrainArrays(*(torch.tensor(a, dtype=dtype, device=device)
+                               for a in (p0, normal, rot, half)))
 
 
 FLAT = Terrain()

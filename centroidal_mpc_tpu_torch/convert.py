@@ -28,8 +28,9 @@ def from_numpy(cls, fields: Mapping[str, Any], device,
                dtype: torch.dtype = torch.float64):
     """Instantiate a dataclass or NamedTuple of the port (ContactSchedule,
     CentroidalModel, OcpConfig, TrajectoryData, BlockQP, WVars, ZGroups,
-    ...) from a dict of field values: numpy arrays become tensors, other
-    values (static fields such as `contact_model`) pass through."""
+    the plant's ClosedLoopReferences and TerrainArrays, ...) from a dict
+    of field values: numpy arrays become tensors, other values (static
+    fields such as `contact_model`) pass through."""
     return cls(**{k: (to_tensor(v, device, dtype)
                       if isinstance(v, (np.ndarray, np.generic)) else v)
                   for k, v in fields.items()})

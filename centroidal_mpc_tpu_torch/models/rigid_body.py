@@ -547,11 +547,15 @@ def centroidal_momentum(spec: RigidBodySpec, q: torch.Tensor,
     R, p = forward_kinematics(spec, q)
     J = _jacobians_from_fk(spec, q, R, p)
     I6 = _inertias_from_fk(spec, q, R, p)
+    return _momentum_from(I6, J, u, _com_from(spec, q, R, p))
+
+
+def _momentum_from(I6, J, u, com):
+    """[linear; angular about the com] from the world-origin momentum."""
     h_o = torch.einsum("...brs,...bsj,...j->...r", I6, J, u)
-    com = _com_from(spec, q, R, p)
     lin = h_o[..., 3:6]
-    ang = h_o[..., 0:3] - torch.linalg.cross(com, lin)
-    return torch.cat([lin, ang], dim=-1)
+    return torch.cat([lin, h_o[..., 0:3] - torch.linalg.cross(com, lin)],
+                     dim=-1)
 
 
 def _com_from(spec, q, R, p):
@@ -662,14 +666,46 @@ def dynamics_terms(spec: RigidBodySpec, q: torch.Tensor, u: torch.Tensor,
                      (mask * rhs_c).expand(lead + (nc,))], dim=-1)
     sol = solve(kkt, rhs[..., None])[..., 0]
     # the task quantities (centroidal_momentum, com_position)
-    h_o = torch.einsum("...brs,...bsj,...j->...r", I6, J, u)
     com = _com_from(spec, q, R, p)
-    lin = h_o[..., 3:6]
-    momentum = torch.cat([lin, h_o[..., 0:3] - torch.linalg.cross(com, lin)],
-                         dim=-1)
+    momentum = _momentum_from(I6, J, u, com)
     return DynamicsTerms(udot=sol[..., :nv],
                          forces=sol[..., nv:].reshape(lead + (nf, cd)),
                          feet=feet, com=com, momentum=momentum)
+
+
+class PlantTerms(NamedTuple):
+    """The unconstrained dynamics at (q, u) and what a simulated plant
+    reads there, from one tree walk (`plant_terms`)."""
+
+    M: torch.Tensor          # (..., nv, nv) mass matrix
+    bias: torch.Tensor       # (..., nv) h(q, u): Coriolis and gravity
+    J: torch.Tensor          # (..., nb, 6, nv) world-origin Jacobians
+    Jc: torch.Tensor         # (..., n_feet, 3, nv) point-foot Jacobians
+    feet: torch.Tensor       # (..., n_feet, 3)
+    com: torch.Tensor        # (..., 3)
+    momentum: torch.Tensor   # (..., 6) centroidal [linear, angular]
+
+
+def plant_terms(spec: RigidBodySpec, q: torch.Tensor,
+                u: torch.Tensor) -> PlantTerms:
+    """The values of `mass_matrix`, `bias_forces`, `body_jacobians`,
+    `contact_jacobian`, `foot_points`, `com_position` and
+    `centroidal_momentum` at q, u, from ONE jvp of the forward kinematics
+    and Jacobians along the coordinate rates (its primal gives the poses
+    and J, its tangent Jdot u's Jacobian rate)."""
+    def walk(qq):
+        R, p = forward_kinematics(spec, qq)
+        return R, p, _jacobians_from_fk(spec, qq, R, p)
+
+    (R, p, J), (_, _, Jdot) = jvp(walk, (q,), (_kinematic_qdot(spec, q, u),))
+    I6 = _inertias_from_fk(spec, q, R, p)
+    feet = _feet_from(spec, q, R, p)
+    com = _com_from(spec, q, R, p)
+    return PlantTerms(M=_mass_from(J, I6),
+                      bias=_bias_from(spec, q, u, R, p, J, Jdot, I6), J=J,
+                      Jc=_contact_from(spec, q, J, feet, point=True),
+                      feet=feet, com=com,
+                      momentum=_momentum_from(I6, J, u, com))
 
 
 def integrate_step(spec: RigidBodySpec, q: torch.Tensor, u: torch.Tensor,

@@ -6,10 +6,9 @@ start -> nominal centroidal SCP -> whole-body tracking -> stochastic SCP
 -> Monte-Carlo evaluation, with npz artifacts between the stages under
 the reference's file names (utils/artifacts.py), so that every stage can
 be re-run alone.  Everything runs on one device: the card unless the
-caller passes device="cpu".
-
-The full-physics Monte-Carlo (the JAX package's sim/physics.py, stage 4b)
-is not ported yet: `physics_sims > 0` raises NotImplementedError.
+caller passes device="cpu".  With physics_sims > 0, stage 4b runs the
+full-physics Monte-Carlo (sim/physics.py, the PyBullet role) on the
+kinematic whole-body references.
 """
 from __future__ import annotations
 
@@ -25,9 +24,12 @@ from centroidal_mpc_tpu_torch.contact.swing import compute_swing_trajectories
 from centroidal_mpc_tpu_torch.models import rigid_body as rb
 from centroidal_mpc_tpu_torch.models import whole_body
 from centroidal_mpc_tpu_torch.models import whole_body_ddp as wbd
+from centroidal_mpc_tpu_torch.models.centroidal import (
+    compute_trajectory_data)
 from centroidal_mpc_tpu_torch.ops.admm import QPSettings
 from centroidal_mpc_tpu_torch.parallel.batch import tile_ocp_config
 from centroidal_mpc_tpu_torch.sim import metrics, monte_carlo
+from centroidal_mpc_tpu_torch.sim import physics as phys
 from centroidal_mpc_tpu_torch.solver.ddp import DdpSettings, DdpSolution
 from centroidal_mpc_tpu_torch.solver.scp import ScpSolution, solve_scp
 from centroidal_mpc_tpu_torch.solver.warm_start import (
@@ -52,11 +54,20 @@ class PipelineResult:
     mc_stochastic: Optional[monte_carlo.MonteCarloResult]
     eval_stats: Dict[str, np.ndarray]
     wb_ddp: Optional[wbd.WholeBodySolution] = None
-    mc_physics: Optional[object] = None      # not ported: always None
+    mc_physics: Optional[phys.PhysicsSimResult] = None
     wb_traj: Optional[whole_body.WholeBodyTrajectory] = None
-    physics_refs: Optional[object] = None    # not ported: always None
+    physics_refs: Optional[phys.ClosedLoopReferences] = None
     terrain: Optional[object] = None         # contact/terrain.Terrain
     warm_ddp: Optional[DdpSolution] = None   # stage 1's iLQR solve
+
+
+# f32 cannot reach the preset default (eps 1e-7, the reference's OSQP
+# operating point): its scaled residuals floor out near 1e-4 and the QP
+# spins to max_iter.  An f32 pipeline takes eps 1e-4 with 'always'
+# adaptive rho and the polish instead, as the JAX package does.
+F32_QP = QPSettings(eps_abs=1e-4, eps_rel=1e-4, max_iter=4000,
+                    adaptive_rho=True, adaptive_rho_mode="always",
+                    polish=True)
 
 
 def _np(t) -> np.ndarray:
@@ -88,8 +99,9 @@ def run_pipeline(preset: ProblemPreset,
     Stage 2 (nominal SCP): solve + 10x interpolation, saved as
       scp_sol_interpol_nom / centroidal_to_wholeBody_traj
       (run_motion.py:38-43).
-    Stage 3 (whole body, with a store): for point-foot robots the
-      kinematic layer (models/whole_body.py, its .dat exports); with
+    Stage 3 (whole body, with a store or physics_sims > 0): for
+      point-foot robots the kinematic layer (models/whole_body.py, its
+      .dat exports with a store); with
       whole_body_mode="ddp", and always for wrench6 robots (talos), the
       joint-space iLQR over the contact-KKT dynamics
       (models/whole_body_ddp.py, the reference's TRACK_CENTROIDAL=True
@@ -99,29 +111,24 @@ def run_pipeline(preset: ProblemPreset,
     Stage 4 (Monte-Carlo, n_sims > 0): disturbance rollouts with LQR
       feedback for both solutions and their statistics; the draws come
       from torch.Generator(device).manual_seed(seed).
+    Stage 4b (physics_sims > 0, point-foot robots): that many
+      full-physics episodes (sim/physics.py) of the reference torque law
+      on the kinematic stage 3, with LQR gains of the nominal plan (2
+      DARE steps) and pushes from torch.Generator(device).manual_seed(
+      seed + 1); saved as physics_monte_carlo_stats.
 
     terrain (contact/terrain.Terrain) snaps the footholds onto its
-    stepstones.  Without a card the default device raises; pass
-    device="cpu" to run on the CPU."""
-    if physics_sims > 0:
-        raise NotImplementedError(
-            "run_pipeline: the full-physics Monte-Carlo (the JAX package's "
-            "sim/physics.py) is not ported; pass physics_sims=0")
+    stepstones, and the plant collides against them.  Without a card the
+    default device raises; pass device="cpu" to run on the CPU."""
     if whole_body_mode not in ("kinematic", "ddp"):
         raise ValueError(f"unknown whole_body_mode {whole_body_mode!r}")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_pipeline: no CUDA device; pass device='cpu' "
                            "to run on the CPU")
 
-    # f32 cannot reach the preset default (eps 1e-7, the reference's OSQP
-    # operating point): its scaled residuals floor out near 1e-4 and the
-    # QP spins to max_iter.  f32 takes eps 1e-4 with 'always' adaptive
-    # rho and the polish instead, as the JAX package does.
     build_kwargs = {"dtype": dtype, "terrain": terrain, "device": device}
     if dtype == torch.float32:
-        build_kwargs["qp"] = QPSettings(
-            eps_abs=1e-4, eps_rel=1e-4, max_iter=4000, adaptive_rho=True,
-            adaptive_rho_mode="always", polish=True)
+        build_kwargs["qp"] = F32_QP
 
     def build_problem(**kw) -> Problem:
         prob = _presets.build_problem(preset, **build_kwargs, **kw)
@@ -149,7 +156,7 @@ def run_pipeline(preset: ProblemPreset,
     # ---- stage 3: whole-body tracking (the joint-space deliverable)
     wb_traj = wb_sol = None
     point3 = preset.robot.contact_model == "point3"
-    if store is not None:
+    if store is not None or physics_sims > 0:
         spec = rb.robot_spec(preset.robot.name)
         swing = compute_swing_trajectories(prob.plan, preset.dt_ctrl)
         if point3:
@@ -163,16 +170,17 @@ def run_pipeline(preset: ProblemPreset,
                                         X_centroidal=X_nom,
                                         U_centroidal=U_nom, dtype=dtype)
             wb_sol = wbd.solve_whole_body_ddp(spec, targets, preset.dt)
-            store.save(art.WHOLEBODY_INTERPOLATED,
-                       X=wb_sol.centroidal_states(), U=U_nom,
-                       **wbd.interpolate_whole_body_solution(
-                           wb_sol, preset.dt, preset.dt_ctrl))
-        else:
+            if store is not None:
+                store.save(art.WHOLEBODY_INTERPOLATED,
+                           X=wb_sol.centroidal_states(), U=U_nom,
+                           **wbd.interpolate_whole_body_solution(
+                               wb_sol, preset.dt, preset.dt_ctrl))
+        elif store is not None:
             store.save(art.WHOLEBODY_INTERPOLATED, X=X_nom, U=U_nom,
                        q=wb_traj.q, qdot=wb_traj.qdot, tau=wb_traj.tau_ff,
                        gains=np.asarray([float(wb_traj.kp),
                                          float(wb_traj.kd)]))
-        if wb_traj is not None:
+        if store is not None and wb_traj is not None:
             whole_body.export_robot_dat(wb_traj, store.root)
 
     # ---- stage 2': stochastic SCP
@@ -218,8 +226,35 @@ def run_pipeline(preset: ProblemPreset,
         if store is not None:
             store.save("monte_carlo_stats", **stats)
 
+    # ---- stage 4b: full-physics Monte-Carlo (the PyBullet role)
+    mc_phys = refs = None
+    if physics_sims > 0 and wb_traj is not None:
+        data = compute_trajectory_data(prob.model, prob.plan.schedule,
+                                       X_nom, U_nom)
+        refs = phys.build_references(wb_traj, X_nom, data.K,
+                                     prob.plan.schedule)
+        x0 = torch.cat([refs.h_des[0, :3], refs.h_des.new_zeros(3),
+                        refs.q_des[0], refs.h_des.new_zeros(spec.nv)])
+        tarr = None if terrain is None else terrain.arrays(device, dtype)
+        mc_phys = phys.run_physics_monte_carlo(
+            spec, refs, x0, torch.Generator(device).manual_seed(seed + 1),
+            physics_sims, terrain=tarr)
+        stats["physics_slippage"] = _np(phys.foot_slippage(
+            mc_phys, refs, terrain=tarr))
+        stats["physics_slippage_series"] = _np(phys.foot_slippage_series(
+            mc_phys, refs, terrain=tarr))
+        stats["physics_cum_cost"] = _np(
+            phys.tracking_cost(mc_phys, refs)[:, -1])
+        stats["physics_fell"] = _np(mc_phys.fell)
+        if store is not None:
+            store.save("physics_monte_carlo_stats",
+                       slippage=stats["physics_slippage"],
+                       cum_cost=stats["physics_cum_cost"],
+                       fell=stats["physics_fell"])
+
     return PipelineResult(problem=prob, warm_X=X_warm, warm_U=U_warm,
                           nominal=nominal, stochastic=stoch_sol,
                           mc_nominal=mc_nom, mc_stochastic=mc_sto,
-                          eval_stats=stats, wb_ddp=wb_sol, wb_traj=wb_traj,
-                          terrain=terrain, warm_ddp=warm)
+                          eval_stats=stats, wb_ddp=wb_sol,
+                          mc_physics=mc_phys, wb_traj=wb_traj,
+                          physics_refs=refs, terrain=terrain, warm_ddp=warm)

@@ -1,2 +1,4 @@
-"""Closed-loop evaluation on the centroidal model: the batched
-Monte-Carlo push study (`monte_carlo`) and its metrics (`metrics`)."""
+"""Closed-loop evaluation: the batched centroidal Monte-Carlo push study
+(`monte_carlo`) and its metrics (`metrics`), the full-physics rigid-body
+plant (`physics`), the analysis figures (`plots`, which imports
+matplotlib) and the standalone HTML motion preview (`preview`)."""

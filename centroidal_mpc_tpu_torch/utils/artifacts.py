@@ -57,3 +57,19 @@ class ArtifactStore:
 
     def maybe_load(self, name: str) -> Optional[Dict[str, np.ndarray]]:
         return self.load(name) if self.exists(name) else None
+
+    def manifest(self) -> Dict[str, dict]:
+        """Every file under the store's root: npz keys and shapes, .dat
+        rows and columns, other files (figures, the HTML preview) by
+        name; what a run is compared by with the JAX package's run."""
+        out = {}
+        for path in sorted(self.root.iterdir()):
+            if path.suffix == ".npz":
+                with np.load(path) as f:
+                    out[path.name] = {k: list(f[k].shape) for k in f.files}
+            elif path.suffix == ".dat":
+                out[path.name] = {"rows_cols":
+                                  list(np.loadtxt(path).shape)}
+            else:
+                out[path.name] = {}
+        return out

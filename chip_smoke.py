@@ -1,6 +1,12 @@
 """Drive the PyTorch + CUDA port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [phase ...] [--deadline SECONDS]
+
+With no phase named every phase runs (as the chip check runs it); named
+phases run after the build, the kernel checks and the main path, which
+always run.  When the deadline (1,080 s by default) passes, the script
+prints `# DEADLINE` with the phase it was in and the phases it did not
+reach, and exits 4 with no result line.
 
 Phases (the first four raise on failure, so the script exits non-zero):
   1. environment: torch/CUDA versions, the card's name and power limit;
@@ -68,23 +74,41 @@ Phases (the first four raise on failure, so the script exits non-zero):
                          written, the warm start a rollout of itself;
        whole_body_ddp/bolt  the 1-step bolt pace's whole-body DDP (V=12,
                          a biped's KKT) with its JAX test's gates;
+       physics/solo12_trot_n50
+                         sim/physics.simulate_episode, 4 episodes x 500
+                         steps in f64, held step by step to the JAX
+                         package's plant on the same references and pushes
+                         (tests/data/jax_physics_solo12_trot_n50.npz);
+       run_motion/solo12_trot
+                         run-motion at the CLI's defaults with 64 physics
+                         episodes on the trot debris (N=165, f32, 1,650
+                         steps): all four kernels, the JAX stage-4b
+                         shapes, the JAX CLI's files; then, last,
+                         `# run_motion <stage> profile`: each kernel's
+                         device ms a call on its shapes (N=165, B=1), and
+                         `# physics step window`: 50 profiled plant steps
+                         of 64 episodes (launches a step, busy share);
        monte_carlo       sim/monte_carlo.run_monte_carlo on the main
                          path's scenario-0 plan, 1024 sims, against the
                          same draws on the CPU, and the sim metrics.
      Each prints its launches, CUDA-event wall time, n_success and status
      counts; each requires the kernels its path runs to launch and the
      others not to (the dense path and 'thomas' launch only dare_lqr; the
-     pipeline's SCP stages all four, the DARE at 2 and 30 steps, its
-     other stages and the bolt DDP none);
+     pipeline's SCP stages all four, the DARE at 2 and 30 steps, stage
+     4b's gains one DARE, its other stages, the plant and the bolt DDP
+     none);
      every path runs even when an earlier one fails its gate, and the
-     script then exits non-zero without a result.  The pipeline and bolt
-     paths run first, right after the kernel checks and before any
-     torch.profiler session (they are host-bound); one DDP iteration is
-     profiled last (`# pipeline/f64 DDP iteration`).
+     script then exits non-zero without a result.  The pipeline, bolt,
+     physics and run-motion paths run first, right after the kernel
+     checks and before any torch.profiler session (they are host-bound);
+     one DDP iteration, run-motion's SCP stages and the plant's window
+     are profiled last (`# pipeline/f64 DDP iteration`,
+     `# run_motion <stage> profile`, `# physics step window`).
 
 Output: a JSON line of per-kernel results, the nvidia-smi name/power-limit
 line, and as the last line {"ok": true, "device": {...}}.
 """
+import argparse
 import dataclasses
 import json
 import os
@@ -92,12 +116,13 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
-from centroidal_mpc_tpu_torch import _tree, cli, pipeline
+from centroidal_mpc_tpu_torch import _tree, cli, convert, pipeline
 from centroidal_mpc_tpu_torch.config import gaits, presets
 from centroidal_mpc_tpu_torch.config.robots import BOLT
 from centroidal_mpc_tpu_torch.contact.plan import build_contact_plan
@@ -116,7 +141,9 @@ from centroidal_mpc_tpu_torch.parallel.batch import (batched_solve,
                                                      tile_ocp_config)
 from centroidal_mpc_tpu_torch.runtime import native
 from centroidal_mpc_tpu_torch.sim import metrics
+from centroidal_mpc_tpu_torch.sim import physics as phys
 from centroidal_mpc_tpu_torch.sim.monte_carlo import run_monte_carlo
+from centroidal_mpc_tpu_torch.sim.preview import write_motion_preview
 from centroidal_mpc_tpu_torch.solver.ddp import DdpSettings
 from centroidal_mpc_tpu_torch.solver.mpc import MpcController
 from centroidal_mpc_tpu_torch.solver.ocp import build_qp
@@ -124,6 +151,7 @@ from centroidal_mpc_tpu_torch.solver.scp import set_fp32_exact
 from centroidal_mpc_tpu_torch.solver.stochastic import (apply_exact_backoffs,
                                                         backoff_jacobians)
 from centroidal_mpc_tpu_torch.utils.artifacts import ArtifactStore
+from centroidal_mpc_tpu_torch.utils.profiling import StageTimer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REF_CACHE = os.path.join(ROOT, "benchmarks", "ref_cache",
@@ -766,11 +794,8 @@ def phase_stochastic_stage(card):
     rho, polish; B=8.  The warm start is the preset's analytic one, so
     that the phase stays as it was measured before the iLQR warm start
     was ported; `# pipeline/*` runs the stage from the iLQR warm start."""
-    qp = QPSettings(eps_abs=1e-4, eps_rel=1e-4, max_iter=4000,
-                    adaptive_rho=True, adaptive_rho_mode="always",
-                    polish=True)
-    prob, scp = problem(presets.SOLO12_TROT, qp=qp, norm_method="svd",
-                        stochastic=True)
+    prob, scp = problem(presets.SOLO12_TROT, qp=pipeline.F32_QP,
+                        norm_method="svd", stochastic=True)
     scp = dataclasses.replace(scp, lqr_iters=30)
     sol, rec = drive("stochastic_stage", prob, scp, 8, card, profile=True)
     print(f"# stochastic_stage: the DARE at 30 steps: "
@@ -804,8 +829,7 @@ def phase_presets(card):
                                      adaptive_rho_mode="always")
         prob, scp = problem(preset, qp=qp)
         talos = scp.update_linearization
-        sol, rec = drive(f"presets/{name}", prob, scp, 32, card,
-                         profile=talos)
+        sol, rec = drive(f"presets/{name}", prob, scp, 32, card)
         rec["x_err_inf"], rec["u_err_inf"] = ref_errors(sol, ref)
         print(f"# presets/{name}: scenario 0 x_err_inf "
               f"{rec['x_err_inf']:.3e}, u_err_inf {rec['u_err_inf']:.3e} "
@@ -1374,19 +1398,25 @@ WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
 
 class StageClock:
-    """Host time (synced) and launches of each stage of run_pipeline,
-    taken by wrapping the functions it calls for as long as the `with`
-    lasts; also the DARE step count of every `dare_lqr` launch."""
+    """Host time (synced, by the port's utils/profiling.StageTimer) and
+    launches of each stage of run_pipeline, taken by wrapping the
+    functions it calls for as long as the `with` lasts; also the DARE step
+    count of every `dare_lqr` launch."""
 
     STAGES = ((pipeline, "ddp_warm_start_solution", "warm start"),
               (pipeline, "_solve", None),
               (pipeline.whole_body, "track_centroidal_solution",
                "kinematic stage 3"),
               (pipeline.wbd, "solve_whole_body_ddp", "DDP stage 3"),
-              (pipeline.monte_carlo, "run_monte_carlo", "Monte-Carlo"))
+              (pipeline.monte_carlo, "run_monte_carlo", "Monte-Carlo"),
+              (pipeline, "compute_trajectory_data", "stage 4b gains"),
+              (pipeline.phys, "run_physics_monte_carlo",
+               "physics Monte-Carlo"))
 
     def __init__(self):
-        self.seconds, self.launches, self.dare_steps = {}, {}, []
+        self.timer = StageTimer()
+        self.seconds = self.timer.totals
+        self.launches, self.dare_steps = {}, []
         self._saved = []
 
     def _timed(self, fn, name):
@@ -1395,11 +1425,9 @@ class StageClock:
                              else "SCP")
             torch.cuda.synchronize()
             before = launch_counts()
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            self.seconds[stage] = (self.seconds.get(stage, 0.0)
-                                   + time.perf_counter() - t0)
+            with self.timer.stage(stage):
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
             counts = self.launches.setdefault(
                 stage, {k: 0 for k in before})
             for k, n in launch_counts().items():
@@ -1431,19 +1459,6 @@ class StageClock:
         return ", ".join(f"{k} {v:.2f} s" for k, v in self.seconds.items())
 
 
-def store_manifest(root):
-    """Every file of an artifact store: npz keys and shapes, .dat shape."""
-    out = {}
-    for name in sorted(os.listdir(root)):
-        path = os.path.join(root, name)
-        if name.endswith(".npz"):
-            with np.load(path) as f:
-                out[name] = {k: list(f[k].shape) for k in f.files}
-        else:
-            out[name] = {"rows_cols": list(np.loadtxt(path).shape)}
-    return out
-
-
 def run_pipeline_timed(dtype, whole_body_mode):
     """run_pipeline on solo12_trot_n50 (stochastic, PIPELINE_SIMS[dtype]
     Monte-Carlo sims) on the card into a fresh store under WORK_DIR, with
@@ -1462,7 +1477,7 @@ def run_pipeline_timed(dtype, whole_body_mode):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = launch_counts()
-        manifest = store_manifest(root)
+        manifest = ArtifactStore(root).manifest()
     return res, counts, clock, manifest, seconds
 
 
@@ -1707,21 +1722,357 @@ def phase_whole_body_bolt(card):
     return rec
 
 
+# the JAX package's float64 plant on solo12_trot_n50's nominal plan and
+# the file manifests of its run-motion CLI (scripts/jax_physics_reference.py)
+PHYSICS_REF = os.path.join(ROOT, "tests", "data",
+                           "jax_physics_solo12_trot_n50.npz")
+# card vs the JAX package's CPU run, relative to max|.|: the first
+# PHYSICS_WINDOW steps at PHYSICS_STEP_TOL, the whole episode and the
+# statistics at PHYSICS_EPISODE_TOL, the tolerances of
+# tests/test_torch_physics.py (the friction anchors switch discretely, so
+# round-off can part two runs late in an episode; on this plan the port's
+# CPU run stays within 1.1e-12 of max|.| over all 500 steps)
+PHYSICS_WINDOW = 200
+PHYSICS_STEP_TOL = 1e-9
+PHYSICS_EPISODE_TOL = 1e-4
+# run-motion's physics episodes (the CLI's --physics-sims 64)
+RUN_MOTION_SIMS = 64
+PROFILE_STEPS = 50      # the plant's profiled window
+
+
+def physics_refs(device, dtype):
+    """(references, x0, push forces, push starts, push length) of the
+    committed JAX plant run on `device` in `dtype`."""
+    ref = np.load(PHYSICS_REF)
+    refs = convert.from_numpy(
+        phys.ClosedLoopReferences,
+        {k[len("refs_"):]: ref[k] for k in ref.files
+         if k.startswith("refs_")}, device, dtype)
+    return (refs, convert.to_tensor(ref["x0"], device, dtype),
+            convert.to_tensor(ref["push_force"], device, dtype),
+            convert.to_tensor(ref["push_start"], device),
+            int(ref["push_len"]), ref)
+
+
+def parting_steps(got, want, tol):
+    """The first step of each episode where |got - want| passes tol (-1:
+    none)."""
+    err = np.abs(got - want).reshape(got.shape[0], got.shape[1], -1).max(-1)
+    return [int(np.argmax(e > tol)) if (e > tol).any() else -1 for e in err]
+
+
+def phase_physics(card):
+    """sim/physics.simulate_episode on the card for four episodes of
+    solo12_trot_n50's plan (500 steps at 1 kHz, nq 18, nv 18, f64; two
+    unpushed, two pushed), from the JAX package's references and pushes
+    (PHYSICS_REF), held to the JAX package's episodes step by step (h,
+    feet, rpy) and to its statistics (foot_slippage, tracking_cost at the
+    end, fell).  Launches none of the four kernels."""
+    spec = rb.solo12_spec()
+    refs, x0, forces, starts, push_len, ref = physics_refs(
+        "cuda", torch.float64)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    h, feet, rpy = phys.simulate_episode(spec, refs, x0, forces, starts,
+                                         push_len)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    res = phys.PhysicsSimResult(
+        h=h, feet=feet, base_rpy=rpy, fell=h[..., 2].amin(-1) < 0.5 * x0[2],
+        push_force=forces, push_start=starts)
+    steps = h.shape[1]
+    window, whole, parting = {}, {}, {}
+    for name, got in (("h", h), ("feet", feet), ("rpy", rpy)):
+        got, want = got.cpu().numpy(), ref[name]
+        scale = float(np.abs(want).max())
+        err = np.abs(got - want)
+        window[name] = float(err[:, :PHYSICS_WINDOW].max()) / scale
+        whole[name] = float(err.max()) / scale
+        parting[name] = parting_steps(got, want, PHYSICS_STEP_TOL * scale)
+    slip = phys.foot_slippage(res, refs).cpu().numpy()
+    cost = phys.tracking_cost(res, refs)[:, -1].cpu().numpy()
+    fell = res.fell.cpu().numpy()
+    slip_rel = float(np.abs(slip - ref["slippage"]).max()
+                     / np.abs(ref["slippage"]).max())
+    cost_rel = float(np.abs(cost - ref["cum_cost"]).max()
+                     / np.abs(ref["cum_cost"]).max())
+    rec = dict(path="physics/solo12_trot_n50", batch=4, steps=steps,
+               launches=counts, seconds=seconds,
+               ms_per_step=seconds / steps * 1e3, window_rel=window,
+               episode_rel=whole, parting=parting, slippage_rel=slip_rel,
+               cum_cost_rel=cost_rel)
+    print(f"# physics/solo12_trot_n50: 4 episodes x {steps} steps at 1 kHz "
+          f"(nq {spec.nq}, nv {spec.nv}, f64): {seconds:.2f} s (host, "
+          f"synced), {seconds / steps * 1e3:.2f} ms a step; launches "
+          f"{counts} [{card}]")
+    print("# physics/solo12_trot_n50: err / max|.| vs JAX, first "
+          f"{PHYSICS_WINDOW} steps: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in window.items())
+          + "; whole episode: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in whole.items())
+          + f"; first step past {PHYSICS_STEP_TOL} of max (-1: none): "
+          f"{parting}; slippage {slip} (JAX {ref['slippage']}, rel "
+          f"{slip_rel:.3e}); cum cost rel {cost_rel:.3e}; fell {fell} "
+          f"(JAX {ref['fell']})")
+    check(h.device.type == "cuda" and bool(torch.isfinite(h).all()),
+          "physics: not on the card or non-finite")
+    for k in window:
+        check(window[k] <= PHYSICS_STEP_TOL,
+              f"physics: {k} err {window[k]:.3e} in the first "
+              f"{PHYSICS_WINDOW} steps (parting at {parting[k]})")
+        check(whole[k] <= PHYSICS_EPISODE_TOL,
+              f"physics: {k} err {whole[k]:.3e} over the episode")
+    check(slip_rel <= PHYSICS_EPISODE_TOL and cost_rel <= PHYSICS_EPISODE_TOL,
+          f"physics: slippage rel {slip_rel:.3e}, cost rel {cost_rel:.3e}")
+    check((fell == ref["fell"]).all(), f"physics: fell {fell}")
+    check(not any(counts.values()), f"physics: launches {counts}")
+    return rec
+
+
+def phase_run_motion(card):
+    """What `run-motion --preset solo12_trot --sims 16 --physics-sims 64
+    --terrain debris` does on the device, on the card (f32, N=165,
+    kinematic stage 3, the plant's 64 episodes of 1,650 steps on the trot
+    stepstones): its run_pipeline call and HTML preview.  Its figures are
+    left out: they are host-side matplotlib work, and the card's machine
+    has no matplotlib (the CPU tests draw them).  Gates: both SCP stages
+    solved; the nominal and stochastic SCP launch all four kernels, stage
+    4b's gains one DARE, no other stage any; the DARE at 2 and 30 steps;
+    the plant's tensors on the card and finite; the JAX stage-4b shapes;
+    slippage >= 0; the cumulative cost non-decreasing; the files, npz
+    keys and shapes of the JAX CLI's run of the same command
+    (PHYSICS_REF) but its figures."""
+    preset = presets.SOLO12_TROT
+    os.makedirs(WORK_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=WORK_DIR) as root, \
+            StageClock() as clock:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        store = ArtifactStore(root)
+        res = pipeline.run_pipeline(
+            preset, store, n_sims=16, physics_sims=RUN_MOTION_SIMS,
+            terrain=DEBRIS_BY_GAIT[preset.gait.gait_type])
+        write_motion_preview(res, preset, root)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        manifest = store.manifest()
+    want = {k: v for k, v in json.loads(str(np.load(PHYSICS_REF)[
+        "manifest_solo12_trot"])).items() if not k.endswith(".png")}
+    mc, refs, stats = res.mc_physics, res.physics_refs, res.eval_stats
+    steps = refs.q_des.shape[0]
+    shapes = {k: stats[k].shape for k in (
+        "physics_slippage", "physics_slippage_series", "physics_cum_cost",
+        "physics_fell")}
+    cost = phys.tracking_cost(mc, refs)
+    rise = float((cost[:, 1:] - cost[:, :-1]).min())
+    plant_s = clock.seconds["physics Monte-Carlo"]
+    fell = int(stats["physics_fell"].sum())
+    rec = dict(path="run_motion/solo12_trot", batch=1, horizon=preset.horizon,
+               launches=counts, seconds=seconds, stage_s=dict(clock.seconds),
+               physics_episodes=RUN_MOTION_SIMS, physics_steps=steps,
+               physics_ms_per_step=plant_s / steps * 1e3, fell=fell)
+    print(f"# run_motion/solo12_trot: run_pipeline + write_motion_preview, "
+          f"N={preset.horizon} f32, 16 sims, {RUN_MOTION_SIMS} physics "
+          f"episodes x {steps} steps on the trot debris: {seconds:.2f} s "
+          f"(host, synced); stages: {clock.line()}; the plant "
+          f"{plant_s / steps * 1e3:.2f} ms a step; launches {counts}, by "
+          f"stage {clock.launches}; DARE steps {clock.dare_steps} [{card}]")
+    print(f"# run_motion/solo12_trot: nominal "
+          f"{bool(res.nominal.success[0])} "
+          f"({int(res.nominal.qp_iterations[0])} QP iterations), stochastic "
+          f"{bool(res.stochastic.success[0])} "
+          f"({int(res.stochastic.qp_iterations[0])}); physics stats "
+          f"{shapes}; fell {fell}/{RUN_MOTION_SIMS} (data); slippage mean "
+          f"{float(stats['physics_slippage'].mean()):.3f} m, min "
+          f"{float(stats['physics_slippage'].min()):.3e}; cum cost mean "
+          f"{float(stats['physics_cum_cost'].mean()):.2f}, least step "
+          f"{rise:.3e}; files as the JAX CLI's: {manifest == want}")
+    check(bool(res.nominal.success[0]), "run_motion: nominal failed")
+    check(bool(res.stochastic.success[0]), "run_motion: stochastic failed")
+    for stage, launched in clock.launches.items():
+        if stage.endswith("SCP"):
+            for name, n in launched.items():
+                check(n > 0, f"run_motion: {stage} launched no {name}")
+        elif stage == "stage 4b gains":
+            check(launched == {**{k: 0 for k in launched}, "dare_lqr": 1},
+                  f"run_motion: stage 4b launched {launched}")
+        else:
+            check(not any(launched.values()),
+                  f"run_motion: {stage} launched {launched}")
+    check(counts["dare_lqr"] == 3 and sorted(clock.dare_steps) == [2, 2, 30],
+          f"run_motion: DARE launches {counts['dare_lqr']}, steps "
+          f"{clock.dare_steps}")
+    check(all(n > 0 for n in counts.values()),
+          f"run_motion: launches {counts}")
+    check(mc.h.device.type == "cuda" and all(
+        bool(torch.isfinite(t).all()) for t in (mc.h, mc.feet, mc.base_rpy)),
+          "run_motion: the plant is not on the card or not finite")
+    check(steps == 1650 and shapes == {
+        "physics_slippage": (64,), "physics_slippage_series": (64, 1649),
+        "physics_cum_cost": (64,), "physics_fell": (64,)},
+          f"run_motion: {steps} steps, shapes {shapes}")
+    check(float(stats["physics_slippage"].min()) >= 0.0,
+          "run_motion: negative slippage")
+    check(rise >= -1e-6 * float(cost.abs().max()),
+          f"run_motion: the cumulative cost falls by {rise}")
+    check(manifest == want, f"run_motion: files {manifest}")
+    return rec
+
+
+def phase_run_motion_profile(card):
+    """Device time of the four kernels on run-motion's shapes, and the
+    plant's launches a step and busy share.  (1) solo12_trot on the trot
+    debris (N=165, B=1, f32 at the pipeline's f32 settings, block
+    backend, from the analytic warm start): the nominal SCP (DARE at 2
+    steps), the stochastic SCP (30 steps) and stage 4b's gains
+    (compute_trajectory_data, 2 steps), each run once and then once under
+    torch.profiler: each kernel's device ms a call.  (2) PROFILE_STEPS
+    plant steps of RUN_MOTION_SIMS episodes in f32 (the committed solo12
+    references; a step does the same work on any plan), timed by CUDA
+    events, then under torch.profiler: device launches a step, busy
+    share.  Runs last: a profiled run slows the host-bound launches after
+    it."""
+    preset = presets.SOLO12_TROT
+    terrain = DEBRIS_BY_GAIT[preset.gait.gait_type]
+    recs = []
+
+    def built(**kw):
+        prob = presets.build_problem(preset, dtype=torch.float32,
+                                     qp=pipeline.F32_QP, terrain=terrain,
+                                     device="cuda", **kw)
+        return dataclasses.replace(prob, scp=dataclasses.replace(
+            prob.scp, qp_backend="block"))
+
+    prob, prob_s = built(), built(stochastic=True)
+    sched = prob.plan.schedule
+    runs = (("SCP", lambda: pipeline._solve(prob, prob.scp)),
+            ("stochastic SCP", lambda: pipeline._solve(
+                prob_s, dataclasses.replace(prob_s.scp, lqr_iters=30))),
+            ("stage 4b gains", lambda: compute_trajectory_data(
+                prob.model, sched, prob.X0, prob.U0)))
+    for stage, run in runs:
+        run()
+        _, per_name, calls = profile_batch(run)
+        per_call = {}
+        for name in REPLACES:
+            ms, _ = kernel_device_ms(per_name, name)
+            if calls[name]:
+                per_call[name] = ms / calls[name]
+        recs.append(dict(path=f"run_motion {stage} profile", batch=1,
+                         horizon=preset.horizon, launches=calls,
+                         kernel_ms_per_call=per_call))
+        print(f"# run_motion {stage} profile: N={preset.horizon} B=1 f32: "
+              f"calls {calls}; device ms a call: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in per_call.items())
+              + f" [{card}]")
+        check(calls["dare_lqr"] == 1, f"run_motion {stage}: DARE {calls}")
+
+    spec = rb.solo12_spec()
+    refs, x0, _, _, push_len, _ = physics_refs("cuda", torch.float32)
+    refs = dataclasses.replace(refs, **{
+        f: getattr(refs, f)[:PROFILE_STEPS] for f in (
+            "q_des", "qd_des", "tau_ff", "h_des", "K_lqr", "logic")})
+    gen = torch.Generator(x0.device).manual_seed(SEED)
+    forces = 15.0 ** 0.5 * torch.randn((RUN_MOTION_SIMS, 3), generator=gen,
+                                       device=x0.device)
+    starts = torch.zeros(RUN_MOTION_SIMS, dtype=torch.long, device=x0.device)
+
+    def window():
+        phys.simulate_episode(spec, refs, x0, forces, starts, push_len)
+
+    window()                 # warm
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    window()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end)
+    _, per_name, calls = profile_batch(window)
+    events = sum(n for _, n in per_name.values())
+    busy_ms = sum(us for us, _ in per_name.values()) / 1e3
+    recs.append(dict(path="physics step window", batch=RUN_MOTION_SIMS,
+                     steps=PROFILE_STEPS, launches=calls,
+                     launches_per_step=events / PROFILE_STEPS,
+                     ms_per_step=wall_ms / PROFILE_STEPS, busy_ms=busy_ms,
+                     busy_share=busy_ms / wall_ms))
+    print(f"# physics step window: {RUN_MOTION_SIMS} episodes x "
+          f"{PROFILE_STEPS} steps, f32: {events / PROFILE_STEPS:.0f} device "
+          f"launches a step, {wall_ms / PROFILE_STEPS:.3f} ms a step (CUDA "
+          f"events), device busy {busy_ms:.2f} of {wall_ms:.2f} ms (busy "
+          f"share {busy_ms / wall_ms:.1%}) [{card}]")
+    for k, (us, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:4]:
+        print(f"#   physics profile top: {us / 1e3:8.3f} ms {n:6d}x "
+              f"{k[:80]}")
+    check(events > 0 and busy_ms > 0, "physics profile: no device time")
+    check(not any(calls.values()), f"physics profile: launches {calls}")
+    return recs
+
+
+# run right after the kernel checks, before the main path's profile: the
+# whole-body DDP and the plant are host-bound, and the DDP's launches ran
+# ~1.3x slower after a torch.profiler session on an H100 (PERF.md
+# section 5)
+WHOLE_BODY_PATHS = (phase_pipeline_f64, phase_pipeline_f32,
+                    phase_whole_body_bolt, phase_physics, phase_run_motion)
 PATHS = (phase_stochastic, phase_stochastic_stage, phase_presets,
          phase_cond, phase_terrain, phase_mpc, phase_dense_n50,
          phase_dense_n165, phase_assoc, phase_thomas, phase_exact_backoffs,
          phase_server)
-# run before the main path's profile: the whole-body DDP is host-bound,
-# and its launches ran ~1.3x slower after a torch.profiler session on an
-# H100 (PERF.md section 5)
-WHOLE_BODY_PATHS = (phase_pipeline_f64, phase_pipeline_f32,
-                    phase_whole_body_bolt)
+# the profiled windows of the host-bound paths come last
+LAST_PATHS = (phase_ddp_iteration, phase_run_motion_profile)
+# the overall deadline (s): the chip run's limit is 1,200 s
+DEADLINE_S = 1080.0
 
 
-def run_paths(phases, records, failed):
+def phase_name(fn):
+    return fn.__name__[len("phase_"):]
+
+
+PHASE_NAMES = ([phase_name(p) for p in WHOLE_BODY_PATHS + PATHS]
+               + ["monte_carlo"] + [phase_name(p) for p in LAST_PATHS])
+
+
+class Deadline:
+    """The overall deadline: when it passes, whether a phase is running or
+    not, print `# DEADLINE` with the phase running and those not reached
+    and end the process with exit code 4, before any result line."""
+
+    def __init__(self, seconds, phases):
+        self.t0 = time.perf_counter()
+        self.seconds = seconds
+        self.pending = list(phases)
+        self.running = "build and kernel checks"
+        self._timer = threading.Timer(seconds, self._expire)
+        self._timer.daemon = True
+        self._timer.start()
+
+    def start(self, name):
+        if name in self.pending:
+            self.pending.remove(name)
+        self.running = name
+
+    def _expire(self):
+        print(f"# DEADLINE: {self.seconds:.0f} s passed in "
+              f"{self.running!r}; phases not reached: {self.pending}",
+              flush=True)
+        sys.stderr.flush()
+        os._exit(4)
+
+    def cancel(self):
+        self._timer.cancel()
+
+
+def run_paths(phases, records, failed, deadline):
     """Run (name, phase) pairs, each timed; a failed gate is recorded and
     the remaining paths still run."""
     for name, phase in phases:
+        deadline.start(name)
         t0 = time.perf_counter()
         try:
             out = phase()
@@ -1732,18 +2083,44 @@ def run_paths(phases, records, failed):
         print(f"# {name}: {time.perf_counter() - t0:.1f} s")
 
 
-def main():
+def parse_args(argv):
+    ap = argparse.ArgumentParser(
+        description="Build the port's kernels, check each against its "
+        "plain version, drive the main path, then the named phases (all "
+        "when none is named).")
+    ap.add_argument("phases", nargs="*", metavar="phase",
+                    help="one of: " + ", ".join(PHASE_NAMES))
+    ap.add_argument("--deadline", type=float, default=DEADLINE_S,
+                    help="seconds until the script stops, reports the "
+                    "phases it did not reach and exits 4 without a result "
+                    f"(default {DEADLINE_S:.0f})")
+    args = ap.parse_args(argv)
+    unknown = set(args.phases) - set(PHASE_NAMES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    chosen = [n for n in PHASE_NAMES if not args.phases or n in args.phases]
+    deadline = Deadline(args.deadline, ["main"] + chosen)
     t0 = time.perf_counter()
     card = phase_environment()
     phase_build()
     results = phase_kernels()
     print(f"# environment, build and kernels: "
           f"{time.perf_counter() - t0:.1f} s")
+
+    def selected(paths):
+        return [(phase_name(p), lambda p=p: p(card)) for p in paths
+                if phase_name(p) in chosen]
+
     # every path has its own gates; a failed gate fails the script after
     # the remaining paths have run
     records, failed = [], []
-    run_paths([(p.__name__, lambda p=p: p(card)) for p in WHOLE_BODY_PATHS],
-              records, failed)
+    run_paths(selected(WHOLE_BODY_PATHS), records, failed, deadline)
+    deadline.start("main")
     t0 = time.perf_counter()
     counts, solve, batch_ms, main_solution = phase_slice(card)
     in_path = phase_profile(solve, batch_ms)
@@ -1755,11 +2132,12 @@ def main():
         print(f"# share of bound {name}: {r['bound_ms'] / r['cold_ms']:.1%}"
               f" cold, {path:.1%} in the batch, "
               f"{r['bound_ms'] / r['ms']:.1%} warm (from L2)")
-    phases = [(p.__name__, lambda p=p: p(card)) for p in PATHS]
-    phases.append(("phase_monte_carlo",
-                   lambda: phase_monte_carlo(card, *main_solution)))
-    phases.append(("phase_ddp_iteration", lambda: phase_ddp_iteration(card)))
-    run_paths(phases, records, failed)
+    phases = selected(PATHS)
+    if "monte_carlo" in chosen:
+        phases.append(("monte_carlo",
+                       lambda: phase_monte_carlo(card, *main_solution)))
+    run_paths(phases + selected(LAST_PATHS), records, failed, deadline)
+    deadline.cancel()
     # the Monte-Carlo rollout launches no kernel: no launches entry
     by_path = {"main": counts, **{r["path"]: r["launches"] for r in records
                                   if "launches" in r}}
@@ -1779,5 +2157,5 @@ def main():
 
 if __name__ == "__main__":
     t0 = time.perf_counter()
-    main()
+    main(sys.argv[1:])
     print(f"# total {time.perf_counter() - t0:.1f} s", file=sys.stderr)

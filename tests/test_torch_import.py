@@ -15,12 +15,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_import_leaves_jax_out():
-    """(a) Every module of the port, the MPC controller, the sim package,
-    the exact back-offs, the certifier, the runtime bindings, the CLI, the
-    whole-body modules, the DDP and the pipeline among them, imports
-    without jax, flax or the JAX package entering sys.modules."""
+    """(a) Every module of the port, the MPC controller, the sim package
+    (the physics plant, figures and preview among it), the exact
+    back-offs, the certifier, the runtime bindings, the CLI, the
+    whole-body modules, the DDP, the pipeline and the profiling helpers
+    among them, imports without jax, flax or the JAX package entering
+    sys.modules; the CLI and chip_smoke.py import without matplotlib
+    (which the figures of run-motion import when they are drawn)."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import centroidal_mpc_tpu_torch.cli, chip_smoke\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "import centroidal_mpc_tpu_torch as p\n"
         "names = [m.name for m in\n"
         "         pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
@@ -34,12 +39,12 @@ def test_import_leaves_jax_out():
         "           'models.whole_body_ddp', 'models.kinematics',\n"
         "           'models.whole_body', 'contact.swing',\n"
         "           'utils.polynomials', 'utils.interpolation',\n"
-        "           'utils.artifacts'} - walked\n"
+        "           'utils.artifacts', 'utils.profiling', 'sim.physics',\n"
+        "           'sim.plots', 'sim.preview'} - walked\n"
         "from centroidal_mpc_tpu_torch import run_pipeline\n"
         "from centroidal_mpc_tpu_torch.solver.warm_start import (\n"
         "    ddp_warm_start)\n"
         "assert not missing, missing\n"
-        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'centroidal_mpc_tpu'))\n"
         "assert not bad, bad\n"

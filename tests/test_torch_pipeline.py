@@ -13,7 +13,6 @@ difference in the merit decides one more or one fewer accepted step.  Its
 cost agrees to ~1e-14; Q, V and TAU are held to 1e-6 of their largest
 entry (the JAX run's V reaches 50.6)."""
 import json
-import os
 
 import numpy as np
 import pytest
@@ -22,6 +21,7 @@ import torch
 import torch_parity_util
 from centroidal_mpc_tpu_torch.config import presets
 from centroidal_mpc_tpu_torch.pipeline import run_pipeline
+from centroidal_mpc_tpu_torch.sim import physics as phys
 from centroidal_mpc_tpu_torch.utils import artifacts as art
 
 TOL = 1e-8
@@ -82,14 +82,7 @@ def test_whole_body_ddp_stage3_matches_jax(run):
 def test_artifacts_match_the_jax_run(run):
     """The same files, and in each the same keys and shapes."""
     res, root, ref = run
-    manifest = {}
-    for name in sorted(os.listdir(root)):
-        path = os.path.join(root, name)
-        if name.endswith(".npz"):
-            with np.load(path) as f:
-                manifest[name] = {k: list(f[k].shape) for k in f.files}
-        else:
-            manifest[name] = {"rows_cols": list(np.loadtxt(path).shape)}
+    manifest = art.ArtifactStore(root).manifest()
     assert manifest == json.loads(str(ref["manifest"]))
     store = art.ArtifactStore(root)
     np.testing.assert_array_equal(store.load(art.WHOLEBODY_TO_CENTROIDAL)["X"],
@@ -114,11 +107,76 @@ def test_monte_carlo_stage(run):
 
 
 def test_unported_and_unknown_options_raise():
-    with pytest.raises(NotImplementedError, match="sim/physics.py"):
-        run_pipeline(presets.SOLO12_TROT_N50, physics_sims=4, device="cpu")
+    """No option is left unported (physics_sims > 0 runs, see
+    test_physics_stage_4b); unknown mode names raise."""
     with pytest.raises(ValueError, match="whole_body_mode"):
         run_pipeline(presets.SOLO12_TROT_N50, whole_body_mode="crocoddyl",
                      device="cpu")
+    with pytest.raises(ValueError, match="qp_backend"):
+        run_pipeline(presets.SOLO12_TROT_MINI, qp_backend="sparse",
+                     stochastic=False, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def physics_run(tmp_path_factory):
+    """The mini preset with stage 4b (2 episodes), f32 as the CLI runs it,
+    into a store."""
+    root = tmp_path_factory.mktemp("physics")
+    res = run_pipeline(presets.SOLO12_TROT_MINI, art.ArtifactStore(root),
+                       stochastic=False, n_sims=2, physics_sims=2,
+                       device="cpu")
+    return res, root
+
+
+def test_physics_stage_4b(physics_run):
+    """The JAX package's stage-4b keys and shapes (its run-motion on the
+    mini preset wrote physics_monte_carlo_stats with these shapes), the
+    plant's result and references on the result, finite statistics, and
+    the cumulative cost non-decreasing."""
+    res, root = physics_run
+    mc, refs = res.mc_physics, res.physics_refs
+    t = refs.q_des.shape[0]
+    assert t == 180 and mc.h.shape == (2, t, 9)
+    assert mc.feet.shape == (2, t, 4, 3) and mc.base_rpy.shape == (2, t, 3)
+    assert mc.h.dtype == torch.float32 and refs.K_lqr.shape == (t, 12, 9)
+    stats = res.eval_stats
+    shapes = {k: v.shape for k, v in stats.items() if k.startswith("phys")}
+    assert shapes == {"physics_slippage": (2,), "physics_cum_cost": (2,),
+                      "physics_slippage_series": (2, t - 1),
+                      "physics_fell": (2,)}
+    assert stats["physics_fell"].dtype == bool
+    assert all(np.isfinite(v).all() for v in stats.values())
+    assert (stats["physics_slippage"] >= 0).all()
+    series = stats["physics_slippage_series"]
+    np.testing.assert_allclose(series[:, -1], stats["physics_slippage"],
+                               rtol=1e-5)
+    cost = phys.tracking_cost(mc, refs)
+    assert bool((cost[:, 1:] >= cost[:, :-1]).all())
+    np.testing.assert_array_equal(cost[:, -1].numpy(),
+                                  stats["physics_cum_cost"])
+    want = json.loads(str(np.load(torch_parity_util.PHYSICS_REF)[
+        "manifest_mini_flat"]))["physics_monte_carlo_stats.npz"]
+    manifest = art.ArtifactStore(root).manifest()
+    assert manifest["physics_monte_carlo_stats.npz"] == want
+    # the pushes come from torch.Generator(device).manual_seed(seed + 1)
+    gen = torch.Generator().manual_seed(1)
+    forces = 15.0 ** 0.5 * torch.randn((2, 3), generator=gen)
+    torch.testing.assert_close(mc.push_force, forces, rtol=0, atol=0)
+
+
+def test_stage3_runs_for_the_plant_without_a_store():
+    """JAX runs stage 3 when there is a store OR physics episodes
+    (centroidal_mpc_tpu/pipeline.py:133): with neither it is skipped,
+    with physics_sims > 0 and no store the kinematic layer and the plant
+    run and nothing is written."""
+    res = run_pipeline(presets.SOLO12_TROT_MINI, stochastic=False,
+                       physics_sims=1, device="cpu")
+    assert res.wb_traj is not None and res.mc_physics.h.shape[0] == 1
+    assert res.wb_ddp is None
+    res = run_pipeline(presets.SOLO12_TROT_MINI, stochastic=False,
+                       device="cpu")
+    assert res.wb_traj is None and res.mc_physics is None
+    assert res.physics_refs is None
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs no CUDA device")

@@ -32,6 +32,10 @@ from centroidal_mpc_tpu_torch.solver.scp import ScpSettings
 # 1-step trot whole-body DDP (scripts/jax_pipeline_reference.py)
 PIPELINE_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "data", "jax_pipeline_solo12_trot_n50.npz")
+# the JAX package's float64 plant on that pipeline's plan and the file
+# manifests of its run-motion CLI (scripts/jax_physics_reference.py)
+PHYSICS_REF = os.path.join(os.path.dirname(PIPELINE_REF),
+                           "jax_physics_solo12_trot_n50.npz")
 
 # One intra-op thread for the port's CPU computations: their tensors are
 # tiny (B <= 4 scenarios of 22 x 22 blocks), so threads buy nothing alone,
