@@ -90,7 +90,15 @@ Phases (the first four raise on failure, so the script exits non-zero):
                          of 64 episodes (launches a step, busy share);
        monte_carlo       sim/monte_carlo.run_monte_carlo on the main
                          path's scenario-0 plan, 1024 sims, against the
-                         same draws on the CPU, and the sim metrics.
+                         same draws on the CPU, and the sim metrics;
+       sharded           the main batch through parallel/multihost's
+                         fleet_solver: at world 1 (NCCL) in this process,
+                         held to the main path's solution, then on two
+                         worker processes sharing the card (gloo; NCCL
+                         refuses two ranks on one card), 64 rows each
+                         through shard_local_rows, each rank's lanes
+                         within 1e-3 of the main path's and every kernel
+                         launched in each worker.
      Each prints its launches, CUDA-event wall time, n_success and status
      counts; each requires the kernels its path runs to launch and the
      others not to (the dense path and 'thomas' launch only dare_lqr; the
@@ -112,6 +120,7 @@ import argparse
 import dataclasses
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -121,6 +130,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from centroidal_mpc_tpu_torch import _tree, cli, convert, pipeline
 from centroidal_mpc_tpu_torch.config import gaits, presets
@@ -137,6 +147,7 @@ from centroidal_mpc_tpu_torch.ops import cuda_lib
 from centroidal_mpc_tpu_torch.ops import lqr_kernel
 from centroidal_mpc_tpu_torch.ops.admm import QPSettings, solve_qp
 from centroidal_mpc_tpu_torch.ops.certify import certify_qp_solution
+from centroidal_mpc_tpu_torch.parallel import multihost
 from centroidal_mpc_tpu_torch.parallel.batch import (batched_solve,
                                                      tile_ocp_config)
 from centroidal_mpc_tpu_torch.runtime import native
@@ -168,14 +179,17 @@ MPC_TICKS = 30
 MPC_SHAPE = (1, MPC_WINDOW, 22)
 MC_SIMS = 1024          # Monte-Carlo sims on the main path's plan
 MC_RTOL = 1e-4          # card vs CPU X_sim, relative to max|X_sim|
+# ranks of the `sharded` phase's two-process run, each on the one card
+SHARD_RANKS = 2
 # kernel-vs-plain shapes (B, N, V): the bench's kernel_exact shape, the
 # main path's, a horizon that wraps the sweeps' ring, more than one wave,
 # then the other paths' shapes: bolt_pace (V=16, the generic width-32
 # build with pad lanes), solo12_pace, N=165 at the preset batch, the MPC
-# tick's window and one full-plan scenario
+# tick's window, one full-plan scenario and a rank's shard of the main
+# batch
 KERNEL_SHAPES = [(32, 8, 22), (BATCH, 50, 22), (4, 165, 22), (300, 50, 22),
                  (32, 122, 16), (32, 107, 22), (32, 165, 22), MPC_SHAPE,
-                 (1, 50, 22)]
+                 (1, 50, 22), (BATCH // SHARD_RANKS, 50, 22)]
 # DARE steps: the main path's, then the stochastic stage's
 # (centroidal_mpc_tpu/pipeline.py:55, stochastic_lqr_iters)
 DARE_ITERS = (2, 30)
@@ -183,12 +197,14 @@ DARE_ITERS = (2, 30)
 # name, scenarios, knots (None: the whole plan), step counts): the main
 # path's and bolt's (nu 6) over BATCH scenarios at both step counts,
 # talos's (wrench6 B) as its preset row runs it (S = 32 x 165, 2 steps,
-# once an SCP iteration), the stochastic stage's (S = 8 x 165, 30 steps)
-# and the MPC tick's window (S = 1 x 20, 2 steps, once a tick)
+# once an SCP iteration), the stochastic stage's (S = 8 x 165, 30 steps),
+# a rank's shard of the main batch (S = 64 x 50) and the MPC tick's
+# window (S = 1 x 20, 2 steps, once a tick)
 DARE_CASES = (("solo12_trot_n50", BATCH, None, DARE_ITERS),
               ("bolt_pace", BATCH, None, DARE_ITERS),
               ("talos_pace", 32, None, (2,)),
               ("solo12_trot", 8, None, (30,)),
+              ("solo12_trot_n50", BATCH // SHARD_RANKS, None, (2,)),
               ("solo12_trot_n50", 1, MPC_WINDOW, (2,)))
 # published H100 SXM peaks at 700 W (NVIDIA's data sheet): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores
@@ -603,7 +619,7 @@ def phase_slice(card):
     check(n_success == BATCH, f"only {n_success}/{BATCH} lanes succeeded")
     check(x_err <= PARITY_BAR and u_err <= PARITY_BAR,
           f"parity: x_err {x_err}, u_err {u_err} > {PARITY_BAR}")
-    return counts, solve, batch_ms, (prob, sol)
+    return counts, solve, batch_ms, (prob, scp, sol)
 
 
 def profile_batch(solve):
@@ -1078,6 +1094,186 @@ def phase_monte_carlo(card, prob, sol):
     check(all(n == 0 for n in counts.values()),
           f"monte_carlo: launched kernels {counts}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# the main path sharded over a torch.distributed group (parallel/multihost)
+# ---------------------------------------------------------------------------
+
+# sharded vs unsharded lanes (__graft_entry__.py:91-97, dryrun_multichip)
+SHARD_BAND = 1e-3
+SHARD_WORKER = os.path.join(ROOT, "tests", "_torch_multihost_worker.py")
+SHARD_TIMEOUT_S = 300
+# the worker processes started; the deadline kills them before it exits
+SPAWNED = []
+
+
+def lane_deviation(X, U, sol, rows):
+    """(max|X - X_main|, max|U - U_main|) over the main path's `rows`."""
+    return (float((X - sol.X[rows].cpu()).abs().max()),
+            float((U - sol.U[rows].cpu()).abs().max()))
+
+
+def phase_sharded(card, prob, scp, sol):
+    """The main path's 128 scenarios through parallel/multihost, held to
+    the main path's solution `sol`: first in this process at world 1
+    (NCCL), then on SHARD_RANKS worker processes sharing the card (gloo:
+    NCCL refuses two ranks on one card), each with its own rows."""
+    X0, U0, cfg = scenarios(prob)
+    return [sharded_one_process(card, prob, scp, sol, (cfg, X0, U0)),
+            sharded_processes(card, prob, scp, sol, (cfg, X0, U0))]
+
+
+def sharded_one_process(card, prob, scp, sol, batch):
+    """`# sharded/1proc`: initialize() alone makes a group of this process
+    (NCCL on the card); fleet_solver over shard_global_batch of the main
+    batch, with the launch counts zeroed just before the solve and read
+    just after; then scaling_report.  The group is destroyed at the end,
+    so that later phases see none."""
+    path = "sharded/1proc"
+    multihost.initialize()
+    try:
+        world, backend = dist.get_world_size(), dist.get_backend()
+        solver, mesh = multihost.fleet_solver(prob.model, prob.plan.schedule,
+                                              scp)
+        args = multihost.shard_global_batch(mesh, batch)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        reset_counts()
+        start.record()
+        out, stats = solver(*args)
+        end.record()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        report = multihost.scaling_report(solver, args, BATCH)
+    finally:
+        dist.destroy_process_group()
+    n_success = int(stats["n_success"])
+    qp_iters = int(stats["qp_iterations"])
+    x_dev, u_dev = lane_deviation(out.X.to_local().cpu(),
+                                  out.U.to_local().cpu(), sol, slice(None))
+    rec = dict(path=path, batch=BATCH, world=world, backend=backend,
+               launches=counts, wall_ms=start.elapsed_time(end),
+               n_success=n_success, qp_iterations=qp_iters,
+               max_rho=float(stats["max_rho"]), x_dev=x_dev, u_dev=u_dev,
+               solves_per_s=report["solves_per_s"])
+    print(f"# {path}: world {world} ({backend}), mesh {mesh.size()} on "
+          f"{mesh.device_type}, B={BATCH}: launches {counts}; wall "
+          f"{rec['wall_ms']:.2f} ms (CUDA events, one batch); n_success "
+          f"{n_success}/{BATCH}, qp_iterations {qp_iters} (main path "
+          f"{int(sol.qp_iterations.sum())}), max_rho {rec['max_rho']:.4g}; "
+          f"vs the main path's lanes: x {x_dev:.3e}, u {u_dev:.3e} (band "
+          f"{SHARD_BAND:g}) [{card}]")
+    print(f"# {path} scaling_report: {json.dumps(report)} [{card}]")
+    for name, n in counts.items():
+        check(n > 0, f"{path}: kernel {name} was not launched")
+    for f in dataclasses.fields(out):
+        check(getattr(out, f.name).to_local().device.type == "cuda",
+              f"{path}: output {f.name} is not on the card")
+    check(world == 1 and backend == "nccl", f"{path}: world {world} "
+          f"({backend}), expected 1 (nccl)")
+    check(tuple(out.X.shape) == (BATCH, 51, 9), f"{path}: X global shape "
+          f"{tuple(out.X.shape)}")
+    check(n_success == BATCH, f"{path}: n_success {n_success}/{BATCH}")
+    check(qp_iters == int(sol.qp_iterations.sum()),
+          f"{path}: qp_iterations {qp_iters} != the main path's "
+          f"{int(sol.qp_iterations.sum())}")
+    check(x_dev < SHARD_BAND and u_dev < SHARD_BAND,
+          f"{path}: lanes off the main path's by x {x_dev}, u {u_dev}")
+    return rec
+
+
+def sharded_processes(card, prob, scp, sol, batch):
+    """`# sharded/2proc`: SHARD_RANKS worker processes
+    (tests/_torch_multihost_worker.py) on the one card, a gloo group; each
+    passes its own rows of the main batch through shard_local_rows, solves
+    and prints its reduced stats, launch counts and scaling report, and
+    writes its lanes to build/chip_smoke/sharded_rank<r>.npz.  The
+    library is built already, so the workers load it."""
+    path = f"sharded/{SHARD_RANKS}proc"
+    os.makedirs(WORK_DIR, exist_ok=True)
+    problem = os.path.join(WORK_DIR, "sharded_problem.pt")
+    model, schedule, cfg, X0, U0 = _tree.to_device(
+        (prob.model, prob.plan.schedule) + batch, "cpu")
+    torch.save(dict(model=model, schedule=schedule, settings=scp, cfg=cfg,
+                    X0=X0, U0=U0), problem)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    outs = [os.path.join(WORK_DIR, f"sharded_rank{r}.npz")
+            for r in range(SHARD_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, SHARD_WORKER, f"localhost:{port}",
+         str(SHARD_RANKS), str(r), problem, outs[r], "--device", "cuda",
+         "--backend", "gloo", "--mode", "local", "--repeats", "3"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(SHARD_RANKS)]
+    SPAWNED.extend(procs)
+    try:
+        logs = [p.communicate(timeout=SHARD_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    seconds = time.perf_counter() - t0
+    results, rows = [], BATCH // SHARD_RANKS
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        lines = [ln for ln in log.splitlines() if ln.startswith("RESULT ")]
+        if p.returncode != 0 or not lines:
+            print("\n".join(f"#   rank {r}: {ln}"
+                            for ln in log.splitlines()[-30:]))
+        check(p.returncode == 0, f"{path}: rank {r} exited "
+              f"{p.returncode}")
+        check(bool(lines), f"{path}: no RESULT line from rank {r}")
+        res = json.loads(lines[-1][len("RESULT "):])
+        with np.load(outs[r]) as lanes:
+            mine = slice(r * rows, (r + 1) * rows)
+            res["x_dev"], res["u_dev"] = lane_deviation(
+                torch.as_tensor(lanes["X"]), torch.as_tensor(lanes["U"]),
+                sol, mine)
+        results.append(res)
+        rep = res["report"]
+        print(f"# {path} rank {r}: n_success {res['n_success']}, "
+              f"qp_iterations {res['qp_iterations']}, max_rho "
+              f"{res['max_rho']:.4g}, global {res['global_shape']}, local "
+              f"{res['local_shape']} on {res['device']}; launches "
+              f"{res['launches']}; vs the main path's lanes {mine.start}-"
+              f"{mine.stop - 1}: x {res['x_dev']:.3e}, u "
+              f"{res['u_dev']:.3e}; scaling_report "
+              f"{rep['solves_per_s']:.1f} solves/s, "
+              f"{rep['solves_per_s_per_device']:.1f} a rank [{card}]")
+    print(f"# {path}: {SHARD_RANKS} ranks (gloo) on one card, "
+          f"{seconds:.1f} s with the workers' start-up")
+    stats = [(r["n_success"], r["qp_iterations"], r["max_rho"])
+             for r in results]
+    check(len(set(stats)) == 1, f"{path}: the ranks' stats differ {stats}")
+    check(stats[0][0] == BATCH, f"{path}: n_success {stats[0][0]}/{BATCH}")
+    for r, res in enumerate(results):
+        for name, n in res["launches"].items():
+            check(n > 0, f"{path}: rank {r} did not launch {name}")
+        check(res["device"].startswith("cuda"), f"{path}: rank {r} solved "
+              f"on {res['device']}")
+        check(res["global_shape"] == [BATCH, 51, 9]
+              and res["local_shape"] == [rows, 51, 9],
+              f"{path}: rank {r} shapes {res['global_shape']}, "
+              f"{res['local_shape']}")
+        check(res["report"]["processes"] == SHARD_RANKS,
+              f"{path}: rank {r} reports {res['report']['processes']} "
+              "processes")
+        check(res["x_dev"] < SHARD_BAND and res["u_dev"] < SHARD_BAND,
+              f"{path}: rank {r} lanes off the main path's by x "
+              f"{res['x_dev']}, u {res['u_dev']}")
+    return dict(path=path, batch=BATCH, world=SHARD_RANKS, backend="gloo",
+                seconds=seconds,
+                launches={name: [res["launches"][name] for res in results]
+                          for name in REPLACES},
+                n_success=stats[0][0], qp_iterations=stats[0][1],
+                x_dev=max(res["x_dev"] for res in results),
+                u_dev=max(res["u_dev"] for res in results),
+                solves_per_s=results[0]["report"]["solves_per_s"])
 
 
 # ---------------------------------------------------------------------------
@@ -2035,7 +2231,8 @@ def phase_name(fn):
 
 
 PHASE_NAMES = ([phase_name(p) for p in WHOLE_BODY_PATHS + PATHS]
-               + ["monte_carlo"] + [phase_name(p) for p in LAST_PATHS])
+               + ["monte_carlo", "sharded"]
+               + [phase_name(p) for p in LAST_PATHS])
 
 
 class Deadline:
@@ -2061,6 +2258,8 @@ class Deadline:
         print(f"# DEADLINE: {self.seconds:.0f} s passed in "
               f"{self.running!r}; phases not reached: {self.pending}",
               flush=True)
+        for p in SPAWNED:
+            p.kill()
         sys.stderr.flush()
         os._exit(4)
 
@@ -2133,9 +2332,13 @@ def main(argv=None):
               f" cold, {path:.1%} in the batch, "
               f"{r['bound_ms'] / r['ms']:.1%} warm (from L2)")
     phases = selected(PATHS)
+    prob, scp, sol = main_solution
     if "monte_carlo" in chosen:
         phases.append(("monte_carlo",
-                       lambda: phase_monte_carlo(card, *main_solution)))
+                       lambda: phase_monte_carlo(card, prob, sol)))
+    if "sharded" in chosen:
+        phases.append(("sharded",
+                       lambda: phase_sharded(card, prob, scp, sol)))
     run_paths(phases + selected(LAST_PATHS), records, failed, deadline)
     deadline.cancel()
     # the Monte-Carlo rollout launches no kernel: no launches entry

@@ -18,9 +18,10 @@ def test_import_leaves_jax_out():
     """(a) Every module of the port, the MPC controller, the sim package
     (the physics plant, figures and preview among it), the exact
     back-offs, the certifier, the runtime bindings, the CLI, the
-    whole-body modules, the DDP, the pipeline and the profiling helpers
-    among them, imports without jax, flax or the JAX package entering
-    sys.modules; the CLI and chip_smoke.py import without matplotlib
+    whole-body modules, the DDP, the pipeline, the profiling helpers,
+    the sharded and multi-process fleet solver (parallel.batch,
+    parallel.multihost) and the demo shims' CLI targets among them,
+    imports without jax, flax or the JAX package entering sys.modules; the CLI and chip_smoke.py import without matplotlib
     (which the figures of run-motion import when they are drawn)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -40,8 +41,16 @@ def test_import_leaves_jax_out():
         "           'models.whole_body', 'contact.swing',\n"
         "           'utils.polynomials', 'utils.interpolation',\n"
         "           'utils.artifacts', 'utils.profiling', 'sim.physics',\n"
-        "           'sim.plots', 'sim.preview'} - walked\n"
+        "           'sim.plots', 'sim.preview', 'parallel.batch',\n"
+        "           'parallel.multihost'} - walked\n"
         "from centroidal_mpc_tpu_torch import run_pipeline\n"
+        "from centroidal_mpc_tpu_torch.cli import (run_motion_main,\n"
+        "                                          mpc_server_main)\n"
+        "from centroidal_mpc_tpu_torch.parallel.multihost import (\n"
+        "    AXIS, fleet_solver, global_mesh, initialize,\n"
+        "    scaling_report, shard_global_batch, shard_local_rows)\n"
+        "from centroidal_mpc_tpu_torch.parallel.batch import (\n"
+        "    make_sharded_solver, scenario_mesh)\n"
         "from centroidal_mpc_tpu_torch.solver.warm_start import (\n"
         "    ddp_warm_start)\n"
         "assert not missing, missing\n"

@@ -19,7 +19,9 @@ from torch_parity_util import np_fields, port_problem
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("name", ["solo12_trot_n50", "solo12_trot_mini"])
+@pytest.mark.parametrize("name", ["solo12_trot_n50", "solo12_trot_mini",
+                                  "solo12_trot", "solo12_pace",
+                                  "solo12_bound", "bolt_pace", "talos_pace"])
 def test_build_problem_matches_jax(name, dtype):
     """(b) The port's build_problem equals the JAX one leaf by leaf:
     schedule, model, OcpConfig, X0/U0 and settings (exact: both are the
@@ -173,3 +175,44 @@ def test_lqr_gain_matches_newton_schulz_chain(name, n_iter):
     assert K.shape == K_ref.shape
     scale = np.abs(K_ref).max()
     assert np.abs(K.numpy() - K_ref).max() < 1e-9 * scale
+
+
+@pytest.mark.slow  # XLA:CPU's compile of the N=122 f64 solve
+def test_bolt_pace_solve_matches_jax_f64():
+    """bolt_pace (V=16, nu=6, N=122), float64, B=2 at the bench point on
+    the block backend: the port's batched_solve against the JAX
+    package's, equal success, SCP and QP iteration counts, X/U within
+    1e-8 (the parity bar of tests/test_torch_slice.py's f64 case)."""
+    from centroidal_mpc_tpu.parallel.batch import batched_solve as jbatched
+    from centroidal_mpc_tpu.parallel.batch import tile_ocp_config as jtile
+    from centroidal_mpc_tpu_torch.parallel.batch import (batched_solve,
+                                                         tile_ocp_config)
+    from torch_parity_util import (BENCH_QP, perturbed_batch,
+                                   qp_settings_pair)
+
+    jqp, _ = qp_settings_pair(**BENCH_QP)
+    jprob = jpresets.build_problem(jpresets.BOLT_PACE, dtype=jnp.float64,
+                                   qp=jqp)
+    jscp = dataclasses.replace(jprob.scp, qp_backend="block",
+                               norm_method="power")
+    Xb, Ub = perturbed_batch(jprob.X0, jprob.U0, 2, seed=0)
+    jsol = jax.jit(lambda c, x, u: jbatched(
+        jprob.model, jprob.plan.schedule, c, x, u, jscp))(
+            jtile(jprob.ocp, Xb[:, 0], Xb[:, -1], Xb), Xb, Ub)
+
+    model, schedule, ocp, scp, _, _ = port_problem(jprob)
+    assert model.n_u == 6
+    scp = dataclasses.replace(scp, qp_backend="block", norm_method="power")
+    X, U = torch.as_tensor(Xb), torch.as_tensor(Ub)
+    sol = batched_solve(model, schedule,
+                        tile_ocp_config(ocp, X[:, 0], X[:, -1], X), X, U,
+                        scp)
+    assert sol.success.all()
+    for k in ("success", "iterations", "qp_iterations", "qp_status"):
+        np.testing.assert_array_equal(getattr(sol, k).numpy(),
+                                      np.asarray(getattr(jsol, k)),
+                                      err_msg=k)
+    for k in ("X", "U"):
+        np.testing.assert_allclose(getattr(sol, k).numpy(),
+                                   np.asarray(getattr(jsol, k)), rtol=1e-8,
+                                   atol=1e-8, err_msg=k)
