@@ -15,6 +15,11 @@ of the JAX package's `while_loop` under vmap), and with adaptive rho only
 the lanes whose residual ratio leaves the deadband are refactored.  The
 products, Cholesky factors and triangular solves are PyTorch library
 calls: the JAX package computes them in XLA, outside any Pallas kernel.
+
+`counts` counts the ADMM loop's work and its blocking host reads, for
+this solver and the block solver (`ops.blockqp`) alike; the loops' spans
+(`utils.profiling.span`) are `qp.scale`, `admm.factor`, `admm.segment`
+and one `sync.*` a blocking read.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 
 from centroidal_mpc_tpu_torch._tree import select
 from centroidal_mpc_tpu_torch.solver.ocp import INF, QPData
+from centroidal_mpc_tpu_torch.utils.profiling import span
 
 # Solver status codes (QPSolution.status / BlockQPSolution.status).
 # MAX_ITER means the iteration budget ran out without meeting the
@@ -33,6 +39,15 @@ STATUS_MAX_ITER = 0
 STATUS_SOLVED = 1
 STATUS_PRIMAL_INFEASIBLE = 2
 STATUS_DUAL_INFEASIBLE = 3
+
+# The ADMM loops' counters (read through `utils.profiling.counters`):
+# residual segments run, ADMM iterations run (segments x check_interval,
+# on every lane of the batch), refactor calls after the first factor, and
+# the blocking host reads: the end-of-loop test (`sync.admm`, one a
+# segment and one at the loop's end) and the refactored lanes' gather
+# (`sync.refactor`, one a segment with adaptive rho).
+counts = {"admm.segments": 0, "admm.iterations": 0,
+          "admm.refactor_calls": 0, "sync.admm": 0, "sync.refactor": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,7 +211,8 @@ def solve_qp(qp: QPData, settings: QPSettings = QPSettings(),
              y0: Optional[torch.Tensor] = None) -> QPSolution:
     """Solve min 1/2 x'Px + q'x s.t. l <= Ax <= u for every scenario of
     the batch.  x0 (B, n) / y0 (B, m): unscaled warm starts."""
-    scaled, D, E, c = ruiz_equilibrate(qp, settings.scaling_iters)
+    with span("qp.scale"):
+        scaled, D, E, c = ruiz_equilibrate(qp, settings.scaling_iters)
     P, q, A, l, u = scaled.P, scaled.q, scaled.A, scaled.l, scaled.u
     nb, n = P.shape[0], P.shape[-1]
     dtype, dev = P.dtype, P.device
@@ -216,7 +232,8 @@ def solve_qp(qp: QPData, settings: QPSettings = QPSettings(),
         return torch.linalg.cholesky(M), rho_vec
 
     rho_b = torch.full((nb,), settings.rho, dtype=dtype, device=dev)
-    L, rho_vec = factor(rho_b)
+    with span("admm.factor"):
+        L, rho_vec = factor(rho_b)
     refactors = torch.zeros(nb, **i32)
 
     # warm start in scaled space: x = D x_scaled, y = E y_scaled / c
@@ -277,68 +294,80 @@ def solve_qp(qp: QPData, settings: QPSettings = QPSettings(),
 
     while True:
         frozen = done | (it >= max_it)
-        if bool(frozen.all()):      # one host sync per segment
+        counts["sync.admm"] += 1
+        with span("sync.admm"):
+            stop = bool(frozen.all())       # one host sync a segment
+        if stop:
             break
-        x2, z2, y2 = x, z, y
-        for _ in range(settings.check_interval):
-            x2, z2, y2 = admm_iter(x2, z2, y2)
+        counts["admm.segments"] += 1
+        counts["admm.iterations"] += settings.check_interval
+        with span("admm.segment"):
+            x2, z2, y2 = x, z, y
+            for _ in range(settings.check_interval):
+                x2, z2, y2 = admm_iter(x2, z2, y2)
 
-        # unscaled residuals (OSQP sec. 5.1), once per segment
-        Ax, Px, Aty = _mv(A, x2), _mv(P, x2), _mv(A.mT, y2)
-        prim_n = _lane_max((Ax - z2) / E)
-        dual_n = _lane_max((Px + q + Aty) / D) / c
-        prim_scale = torch.maximum(_lane_max(Ax / E), _lane_max(z2 / E))
-        dual_scale = torch.maximum(
-            torch.maximum(_lane_max(Px / D), _lane_max(Aty / D)),
-            _lane_max(q / D)) / c
-        eps_prim = settings.eps_abs + settings.eps_rel * prim_scale
-        eps_dual = settings.eps_abs + settings.eps_rel * dual_scale
-        done_new = (prim_n < eps_prim) & (dual_n < eps_dual)
-        status_new = torch.where(done_new,
-                                 torch.tensor(STATUS_SOLVED, **i32),
-                                 torch.tensor(STATUS_MAX_ITER, **i32))
-        if settings.check_infeasibility:
-            pinf, dinf = certificates(x2 - x, y2 - y)
-            status_new = torch.where(
-                pinf & ~done_new,
-                torch.tensor(STATUS_PRIMAL_INFEASIBLE, **i32),
-                torch.where(dinf & ~done_new,
-                            torch.tensor(STATUS_DUAL_INFEASIBLE, **i32),
-                            status_new))
-            done_new = done_new | ((pinf | dinf) & ~done_new)
+            # unscaled residuals (OSQP sec. 5.1), once per segment
+            Ax, Px, Aty = _mv(A, x2), _mv(P, x2), _mv(A.mT, y2)
+            prim_n = _lane_max((Ax - z2) / E)
+            dual_n = _lane_max((Px + q + Aty) / D) / c
+            prim_scale = torch.maximum(_lane_max(Ax / E), _lane_max(z2 / E))
+            dual_scale = torch.maximum(
+                torch.maximum(_lane_max(Px / D), _lane_max(Aty / D)),
+                _lane_max(q / D)) / c
+            eps_prim = settings.eps_abs + settings.eps_rel * prim_scale
+            eps_dual = settings.eps_abs + settings.eps_rel * dual_scale
+            done_new = (prim_n < eps_prim) & (dual_n < eps_dual)
+            status_new = torch.where(done_new,
+                                     torch.full((), STATUS_SOLVED, **i32),
+                                     torch.full((), STATUS_MAX_ITER, **i32))
+            if settings.check_infeasibility:
+                pinf, dinf = certificates(x2 - x, y2 - y)
+                status_new = torch.where(
+                    pinf & ~done_new,
+                    torch.full((), STATUS_PRIMAL_INFEASIBLE, **i32),
+                    torch.where(dinf & ~done_new,
+                                torch.full((), STATUS_DUAL_INFEASIBLE, **i32),
+                                status_new))
+                done_new = done_new | ((pinf | dinf) & ~done_new)
 
-        # best-so-far safeguard: a stalled or drifting iterate never
-        # worsens the returned solution
-        improve = (torch.maximum(prim_n, dual_n)
-                   < torch.maximum(pb, db)) & ~frozen
-        xb, zb, yb = select(improve, (x2, z2, y2), (xb, zb, yb))
-        pb = torch.where(improve, prim_n, pb)
-        db = torch.where(improve, dual_n, db)
+            # best-so-far safeguard: a stalled or drifting iterate never
+            # worsens the returned solution
+            improve = (torch.maximum(prim_n, dual_n)
+                       < torch.maximum(pb, db)) & ~frozen
+            xb, zb, yb = select(improve, (x2, z2, y2), (xb, zb, yb))
+            pb = torch.where(improve, prim_n, pb)
+            db = torch.where(improve, dual_n, db)
 
-        x, z, y = select(frozen, (x, z, y), (x2, z2, y2))
-        it = torch.where(frozen, it, it + settings.check_interval)
-        prim = torch.where(frozen, prim, prim_n)
-        dual = torch.where(frozen, dual, dual_n)
-        status = torch.where(frozen, status, status_new)
-        done = done | (done_new & ~frozen)
+            x, z, y = select(frozen, (x, z, y), (x2, z2, y2))
+            it = torch.where(frozen, it, it + settings.check_interval)
+            prim = torch.where(frozen, prim, prim_n)
+            dual = torch.where(frozen, dual, dual_n)
+            status = torch.where(frozen, status, status_new)
+            done = done | (done_new & ~frozen)
+            if settings.adaptive_rho:
+                # OSQP adaptive rho at segment granularity; only the lanes
+                # that trigger and run on are refactored
+                ratio = torch.sqrt(
+                    (prim_n / prim_scale.clamp(min=1e-30))
+                    / (dual_n / dual_scale.clamp(min=1e-30)).clamp(min=1e-30))
+                trigger = (((ratio > settings.adaptive_rho_tol)
+                            | (ratio < 1.0 / settings.adaptive_rho_tol))
+                           & ~done & (it < max_it))
         if settings.adaptive_rho:
-            # OSQP adaptive rho at segment granularity; only the lanes
-            # that trigger and run on are refactored
-            ratio = torch.sqrt(
-                (prim_n / prim_scale.clamp(min=1e-30))
-                / (dual_n / dual_scale.clamp(min=1e-30)).clamp(min=1e-30))
-            trigger = (((ratio > settings.adaptive_rho_tol)
-                        | (ratio < 1.0 / settings.adaptive_rho_tol))
-                       & ~done & (it < max_it))
-            lanes = trigger.nonzero()[:, 0]
+            counts["sync.refactor"] += 1
+            with span("sync.refactor"):
+                lanes = trigger.nonzero()[:, 0]
             if lanes.numel():
-                rho_b = torch.where(trigger,
-                                    (rho_b * ratio).clamp(1e-6, 1e6), rho_b)
-                L_sub, rv_sub = factor(rho_b.index_select(0, lanes), lanes)
-                L = L.index_copy(0, lanes, L_sub)
-                rho_vec = rho_vec.index_copy(0, lanes, rv_sub)
-                refactors = refactors.index_add(
-                    0, lanes, torch.ones_like(lanes, dtype=torch.int32))
+                counts["admm.refactor_calls"] += 1
+                with span("admm.factor"):
+                    rho_b = torch.where(
+                        trigger, (rho_b * ratio).clamp(1e-6, 1e6), rho_b)
+                    L_sub, rv_sub = factor(rho_b.index_select(0, lanes),
+                                           lanes)
+                    L = L.index_copy(0, lanes, L_sub)
+                    rho_vec = rho_vec.index_copy(0, lanes, rv_sub)
+                    refactors = refactors.index_add(
+                        0, lanes, torch.ones_like(lanes, dtype=torch.int32))
 
     # adopt the best-so-far iterate where it beats the final one
     adopt = torch.maximum(pb, db) < torch.maximum(prim, dual)

@@ -17,7 +17,10 @@ Every tensor carries a leading scenario axis B; per-scenario scalars
 (residuals, step sizes, statuses) are (B,) tensors.  The JAX package runs
 this loop once for the whole vmapped batch and freezes converged lanes by
 masking; the port does the same with `torch.where`, and leaves the loop
-when no lane is active (one host sync per residual segment).
+when no lane is active (one host sync per residual segment).  The loop
+counts its work in `ops.admm.counts` and opens the spans `qp.scale`,
+`admm.factor`, `admm.segment`, `qp.polish` and one `sync.*` a blocking
+host read (`utils.profiling.span`).
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ from centroidal_mpc_tpu_torch.contact.plan import ContactSchedule
 from centroidal_mpc_tpu_torch.ops.admm import (QPSettings, STATUS_MAX_ITER,
                                                STATUS_SOLVED,
                                                STATUS_PRIMAL_INFEASIBLE,
-                                               STATUS_DUAL_INFEASIBLE)
+                                               STATUS_DUAL_INFEASIBLE,
+                                               counts)
 from centroidal_mpc_tpu_torch.ops.block_tridiag import (_matvec,
                                                         factor_batched,
                                                         solve_assoc,
@@ -43,6 +47,7 @@ from centroidal_mpc_tpu_torch.solver.ocp import (DYN_SLACK, INF, OcpConfig,
                                                  N_X, _chance_backoffs,
                                                  per_lane, rotated_pyramid,
                                                  sign_enumeration_matrix)
+from centroidal_mpc_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,7 +307,7 @@ def _col_norms(s: _Scaled) -> WVars:
 def _ruiz(qp: BlockQP, iters: int) -> _Scaled:
     nb, N, nx, nu = qp.A.shape[0], qp.horizon, qp.A.shape[2], qp.n_u
     dtype, dev = qp.A.dtype, qp.A.device
-    eps = torch.tensor(DYN_SLACK, dtype=dtype, device=dev)
+    eps = torch.full((), DYN_SLACK, dtype=dtype, device=dev)
 
     def ones(*shape):
         return torch.ones((nb,) + shape, dtype=dtype, device=dev)
@@ -638,8 +643,8 @@ def _polish(s: _Scaled, settings: QPSettings, sigma: float, w: WVars,
         # later rounds raise the penalty at constant cond(M)
         ramp = settings.polish_rho_ramp ** rnd
         beta = settings.polish_rho * ramp
-        dsig = (torch.tensor(settings.polish_sigma * ramp, dtype=dtype,
-                             device=dev) - sigma)
+        dsig = (torch.full((), settings.polish_sigma * ramp, dtype=dtype,
+                           device=dev) - sigma)
         mask, b_a = detect(Aw, y_p)
         rho_p = ZGroups(*(m.to(dtype) * beta for m in mask))
         diag, off = _assemble_blocks(s, rho_p, sigma)
@@ -737,7 +742,8 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
 
     rho_b = torch.full((nb,), settings.rho, dtype=dtype, device=dev)
     rho_g = _rho_groups(settings, rho_b, s)
-    fac = factorize(*_assemble_blocks(s, rho_g, sigma))
+    with span("admm.factor"):
+        fac = factorize(*_assemble_blocks(s, rho_g, sigma))
     refactors = torch.zeros(nb, dtype=torch.int32, device=dev)
 
     def admm_iter(w, z, y, rho_g, fac):
@@ -767,69 +773,81 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
 
     while True:
         frozen = done | (it >= max_it)
-        if bool(frozen.all()):      # one host sync per segment
+        counts["sync.admm"] += 1
+        with span("sync.admm"):
+            stop = bool(frozen.all())       # one host sync a segment
+        if stop:
             break
-        w2, z2, y2 = w, z, y
-        for _ in range(settings.check_interval):
-            w2, z2, y2 = admm_iter(w2, z2, y2, rho_g, fac)
+        counts["admm.segments"] += 1
+        counts["admm.iterations"] += settings.check_interval
+        with span("admm.segment"):
+            w2, z2, y2 = w, z, y
+            for _ in range(settings.check_interval):
+                w2, z2, y2 = admm_iter(w2, z2, y2, rho_g, fac)
 
-        (prim_n, dual_n, eps_prim, eps_dual,
-         prim_scale, dual_scale) = _residuals(s, settings, w2, z2, y2)
-        done_new = (prim_n < eps_prim) & (dual_n < eps_dual)
-        status_new = torch.where(
-            done_new, torch.tensor(STATUS_SOLVED, **i32),
-            torch.tensor(STATUS_MAX_ITER, **i32))
-        if settings.check_infeasibility:
-            dw = _wmap(lambda a, b: a - b, w2, w)
-            dy = _zmap(lambda a, b: a - b, y2, y)
-            pinf, dinf = _certificates(s, settings, dw, dy)
+            (prim_n, dual_n, eps_prim, eps_dual,
+             prim_scale, dual_scale) = _residuals(s, settings, w2, z2, y2)
+            done_new = (prim_n < eps_prim) & (dual_n < eps_dual)
             status_new = torch.where(
-                pinf & ~done_new, torch.tensor(STATUS_PRIMAL_INFEASIBLE, **i32),
-                torch.where(dinf & ~done_new,
-                            torch.tensor(STATUS_DUAL_INFEASIBLE, **i32),
-                            status_new))
-            done_new = done_new | ((pinf | dinf) & ~done_new)
+                done_new, torch.full((), STATUS_SOLVED, **i32),
+                torch.full((), STATUS_MAX_ITER, **i32))
+            if settings.check_infeasibility:
+                dw = _wmap(lambda a, b: a - b, w2, w)
+                dy = _zmap(lambda a, b: a - b, y2, y)
+                pinf, dinf = _certificates(s, settings, dw, dy)
+                status_new = torch.where(
+                    pinf & ~done_new,
+                    torch.full((), STATUS_PRIMAL_INFEASIBLE, **i32),
+                    torch.where(dinf & ~done_new,
+                                torch.full((), STATUS_DUAL_INFEASIBLE, **i32),
+                                status_new))
+                done_new = done_new | ((pinf | dinf) & ~done_new)
 
-        rho_next = rho_b
-        if settings.adaptive_rho:
-            ratio = torch.sqrt(
-                (prim_n / prim_scale.clamp(min=1e-30))
-                / (dual_n / dual_scale.clamp(min=1e-30)).clamp(min=1e-30))
-            new_rho = (rho_b * ratio).clamp(1e-6, 1e6)
-            trigger = (((ratio > settings.adaptive_rho_tol)
-                        | (ratio < 1.0 / settings.adaptive_rho_tol))
-                       & ~done_new)
-            rho_next = torch.where(trigger, new_rho, rho_b)
+            rho_next = rho_b
+            if settings.adaptive_rho:
+                ratio = torch.sqrt(
+                    (prim_n / prim_scale.clamp(min=1e-30))
+                    / (dual_n / dual_scale.clamp(min=1e-30)).clamp(min=1e-30))
+                new_rho = (rho_b * ratio).clamp(1e-6, 1e6)
+                trigger = (((ratio > settings.adaptive_rho_tol)
+                            | (ratio < 1.0 / settings.adaptive_rho_tol))
+                           & ~done_new)
+                rho_next = torch.where(trigger, new_rho, rho_b)
 
-        w3, z3, y3 = select(frozen, (w, z, y), (w2, z2, y2))
-        # best-so-far safeguard: track the iterate with the smallest
-        # max(prim, dual) and return it if the final one is worse
-        improve = ((torch.maximum(prim_n, dual_n)
-                    < 0.99 * torch.maximum(pb, db)) & ~frozen)
-        stall = torch.where(frozen, stall,
-                            torch.where(improve, torch.zeros_like(stall),
-                                        stall + 1))
-        wb, yb = select(improve, (w3, y3), (wb, yb))
-        pb = torch.where(improve, prim_n, pb)
-        db = torch.where(improve, dual_n, db)
-        if settings.stall_segments > 0:
-            done_new = done_new | (stall >= settings.stall_segments)
-        w, z, y = w3, z3, y3
-        rho_b = torch.where(frozen, rho_b, rho_next)
-        it = torch.where(frozen, it, it + settings.check_interval)
-        prim = torch.where(frozen, prim, prim_n)
-        dual = torch.where(frozen, dual, dual_n)
-        done = done | (done_new & ~frozen)
-        status = torch.where(frozen, status, status_new)
+            w3, z3, y3 = select(frozen, (w, z, y), (w2, z2, y2))
+            # best-so-far safeguard: track the iterate with the smallest
+            # max(prim, dual) and return it if the final one is worse
+            improve = ((torch.maximum(prim_n, dual_n)
+                        < 0.99 * torch.maximum(pb, db)) & ~frozen)
+            stall = torch.where(frozen, stall,
+                                torch.where(improve, torch.zeros_like(stall),
+                                            stall + 1))
+            wb, yb = select(improve, (w3, y3), (wb, yb))
+            pb = torch.where(improve, prim_n, pb)
+            db = torch.where(improve, dual_n, db)
+            if settings.stall_segments > 0:
+                done_new = done_new | (stall >= settings.stall_segments)
+            w, z, y = w3, z3, y3
+            rho_b = torch.where(frozen, rho_b, rho_next)
+            it = torch.where(frozen, it, it + settings.check_interval)
+            prim = torch.where(frozen, prim, prim_n)
+            dual = torch.where(frozen, dual, dual_n)
+            done = done | (done_new & ~frozen)
+            status = torch.where(frozen, status, status_new)
         if settings.adaptive_rho:
             # refactor only the lanes that triggered and run on; a
             # segment after which none does launches no factor
-            lanes = (trigger & ~done & (it < max_it)).nonzero()[:, 0]
+            run_on = trigger & ~done & (it < max_it)
+            counts["sync.refactor"] += 1
+            with span("sync.refactor"):
+                lanes = run_on.nonzero()[:, 0]
             if lanes.numel():
-                fac = refactor_lanes(rho_b, fac, lanes)
-                rho_g = _rho_groups(settings, rho_b, s)
-                refactors = refactors.index_add(
-                    0, lanes, torch.ones_like(lanes, dtype=torch.int32))
+                counts["admm.refactor_calls"] += 1
+                with span("admm.factor"):
+                    fac = refactor_lanes(rho_b, fac, lanes)
+                    rho_g = _rho_groups(settings, rho_b, s)
+                    refactors = refactors.index_add(
+                        0, lanes, torch.ones_like(lanes, dtype=torch.int32))
 
     # adopt the best-so-far iterate where it beats the final one
     adopt = torch.maximum(pb, db) < torch.maximum(prim, dual)
@@ -839,20 +857,22 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
     y_lo = ZGroups(*(torch.zeros_like(v) for v in y))
 
     if settings.polish:
-        w_p, z_p, y_p, y_lo_p = _polish(s, settings, sigma, w, y, nx, nu)
-        (prim_p, dual_p, eps_prim_p, eps_dual_p,
-         _, _) = _residuals(s, settings, w_p, z_p, y_p, y_lo_p)
-        # normalized worst-residual acceptance gate, as shipped in the JAX
-        # package (ops/blockqp.py there)
-        worst = torch.maximum(prim / eps_prim_p, dual / eps_dual_p)
-        worst_p = torch.maximum(prim_p / eps_prim_p, dual_p / eps_dual_p)
-        better = worst_p < worst
-        w, y, y_lo = select(better, (w_p, y_p, y_lo_p), (w, y, y_lo))
-        prim = torch.where(better, prim_p, prim)
-        dual = torch.where(better, dual_p, dual)
-        newly = better & (prim_p < eps_prim_p) & (dual_p < eps_dual_p)
-        status = torch.where(newly, torch.tensor(STATUS_SOLVED, **i32),
-                             status)
+        with span("qp.polish"):
+            w_p, z_p, y_p, y_lo_p = _polish(s, settings, sigma, w, y, nx, nu)
+            (prim_p, dual_p, eps_prim_p, eps_dual_p,
+             _, _) = _residuals(s, settings, w_p, z_p, y_p, y_lo_p)
+            # normalized worst-residual acceptance gate, as shipped in the
+            # JAX package (ops/blockqp.py there)
+            worst = torch.maximum(prim / eps_prim_p, dual / eps_dual_p)
+            worst_p = torch.maximum(prim_p / eps_prim_p,
+                                    dual_p / eps_dual_p)
+            better = worst_p < worst
+            w, y, y_lo = select(better, (w_p, y_p, y_lo_p), (w, y, y_lo))
+            prim = torch.where(better, prim_p, prim)
+            dual = torch.where(better, dual_p, dual)
+            newly = better & (prim_p < eps_prim_p) & (dual_p < eps_dual_p)
+            status = torch.where(newly, torch.full((), STATUS_SOLVED, **i32),
+                                 status)
 
     return w, y, y_lo, it, prim, dual, status, rho_b, refactors
 
@@ -896,7 +916,8 @@ def solve_block_qp(qp: BlockQP, settings: QPSettings = QPSettings(),
     OSQP semantics.  w0 / y0: unscaled primal / dual warm starts."""
     check_settings(settings)
     nx, nu = qp.A.shape[2], qp.n_u
-    s = _ruiz(qp, settings.scaling_iters)
+    with span("qp.scale"):
+        s = _ruiz(qp, settings.scaling_iters)
     if w0 is None:
         w = WVars(*(torch.zeros_like(d) for d in s.D))
     else:

@@ -53,10 +53,11 @@ def sign_enumeration_matrix(n: int, dtype=torch.float64, *,
                             device) -> torch.Tensor:
     """(2^n, n) matrix of +-1 sign patterns for the L1 trust region,
     column j = (-1)^(row // 2^j) (reference src/optimizer.py:111-112)."""
-    rows = np.arange(2**n)[:, None]
-    cols = 2 ** np.arange(n)[None, :]
-    return torch.as_tensor((-1.0) ** (rows // cols), dtype=dtype,
-                           device=device)
+    # built where it is used: a copy from the host would wait for the
+    # card's queue to drain
+    rows = torch.arange(2**n, device=device)[:, None]
+    cols = 2 ** torch.arange(n, device=device)[None, :]
+    return (1 - 2 * ((rows // cols) % 2)).to(dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +113,10 @@ def _offsets(segs):
 
 def per_lane(v, like: torch.Tensor) -> torch.Tensor:
     """A scalar or (B,) value as a (B,) tensor of like's dtype/device."""
+    if isinstance(v, (int, float)):
+        # a fill on the card: a copy from the host would wait for its queue
+        return torch.full(like.shape[:1], v, dtype=like.dtype,
+                          device=like.device)
     v = torch.as_tensor(v, dtype=like.dtype, device=like.device)
     return v.expand(like.shape[0])
 

@@ -26,6 +26,10 @@ proper GuSTO loop, which talos needs) every iteration linearizes, runs
 the DARE and builds the QP at each lane's current linearization
 trajectory X_lin, which moves to an accepted solution; the comparison
 trajectory X_cmp (the reference's prev_traj_dict) takes the old X_lin.
+
+`counts` counts the loop's passes and its blocking host reads; the
+loop's spans (`utils.profiling.span`) are `scp.solve`, `scp.linearize`,
+`qp.build`, `scp.accept` and `sync.scp`, around the QP solvers' own.
 """
 from __future__ import annotations
 
@@ -42,6 +46,12 @@ from centroidal_mpc_tpu_torch.ops import blockqp
 from centroidal_mpc_tpu_torch.ops.admm import QPSettings, solve_qp
 from centroidal_mpc_tpu_torch.solver.ocp import (N_X, OcpConfig, build_qp,
                                                  qp_dims)
+from centroidal_mpc_tpu_torch.utils.profiling import span
+
+# The SCP loop's counters (read through `utils.profiling.counters`):
+# passes of the loop (each solves one QP on every lane of the batch) and
+# the loop test's blocking host reads (one a pass and one at the end).
+counts = {"scp.iterations": 0, "sync.scp": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +141,13 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
     """Solve B SCP problems from initial trajectories X0 (B, N+1, nx),
     U0 (B, N, nu); cfg carries the leading B axis (`parallel.batch.
     tile_ocp_config`)."""
+    with span("scp.solve"):
+        return _solve_scp(model, schedule, cfg, X0, U0, settings)
+
+
+def _solve_scp(model: CentroidalModel, schedule: ContactSchedule,
+               cfg: OcpConfig, X0: torch.Tensor, U0: torch.Tensor,
+               settings: ScpSettings) -> ScpSolution:
     if settings.qp_backend not in ("dense", "block"):
         raise ValueError(f"unknown qp_backend {settings.qp_backend!r}")
     dense = settings.qp_backend == "dense"
@@ -142,20 +159,24 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
     relin = settings.update_linearization
     n_xu = N_X * (N + 1) + model.n_u * N
 
+    def trajectory_data(X, U):
+        with span("scp.linearize"):
+            return compute_trajectory_data(model, schedule, X, U,
+                                           lqr_iters=settings.lqr_iters,
+                                           with_covariance=cfg.stochastic)
+
     def linearize(X, U, radius, weight):
-        data = compute_trajectory_data(model, schedule, X, U,
-                                       lqr_iters=settings.lqr_iters,
-                                       with_covariance=cfg.stochastic)
+        data = trajectory_data(X, U)
         build = build_qp if dense else blockqp.build_block_qp
-        return data, build(model, schedule, cfg, X, U, data, radius, weight)
+        with span("qp.build"):
+            return data, build(model, schedule, cfg, X, U, data, radius,
+                               weight)
 
     if not relin:
         # frozen linearization: computed once, outside the loop (the
         # reference linearizes the initial trajectory every iteration)
         if dense:
-            data = compute_trajectory_data(model, schedule, X0, U0,
-                                           lqr_iters=settings.lqr_iters,
-                                           with_covariance=cfg.stochastic)
+            data = trajectory_data(X0, U0)
         else:
             data, qp_const = linearize(X0, U0,
                                        settings.trust_region_radius0,
@@ -200,20 +221,26 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
         active = ((c["it"] < settings.max_iterations)
                   & (c["weight"] < settings.omega_max)
                   & not_converged & c["qp_ok"])
-        if not bool(active.any()):       # one host sync per SCP iteration
+        counts["sync.scp"] += 1
+        with span("sync.scp"):
+            go_on = bool(active.any())   # one host sync per SCP iteration
+        if not go_on:
             break
+        counts["scp.iterations"] += 1
         radius, weight = c["radius"], c["weight"]
         X_lin, U_lin = c["X_lin"], c["U_lin"]
         if relin:
             data, qp = linearize(X_lin, U_lin, radius, weight)
-        elif dense:
-            qp = build_qp(model, schedule, cfg, X_lin, U_lin, data, radius,
-                          weight)
         else:
-            qp = dataclasses.replace(
-                qp_const, inv_omega=1.0 / weight,
-                trust_ub=(radius[:, None, None]
-                          + X0[..., 6:9] @ qp_const.penum.T))
+            with span("qp.build"):
+                if dense:
+                    qp = build_qp(model, schedule, cfg, X_lin, U_lin, data,
+                                  radius, weight)
+                else:
+                    qp = dataclasses.replace(
+                        qp_const, inv_omega=1.0 / weight,
+                        trust_ub=(radius[:, None, None]
+                                  + X0[..., 6:9] @ qp_const.penum.T))
         if dense:
             sol = solve_qp(qp, settings.qp, x0=c["warm_x"], y0=c["warm_y"])
             X_sol = sol.x[:, :N_X * (N + 1)].reshape(nb, N + 1, N_X)
@@ -225,46 +252,48 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
             X_sol, U_sol = sol.X, sol.U
             warm_x, warm_y = blockqp.WVars(x=X_sol, u=U_sol, t=sol.t), sol.y
 
-        inside = (_matrix_norm2(X_sol - c["X_cmp"], settings.norm_method)
-                  < radius)
-        rho = model_accuracy(model, schedule, X_sol, U_sol, X_lin, U_lin,
-                             data)
-        accurate = rho <= settings.rho1
-        # a non-converged QP is never accepted; the loop also aborts
-        accept = inside & accurate & sol.converged
-        radius_new = torch.where(
-            inside & ~accurate, radius * settings.beta_fail,
-            torch.where(accept & (rho < settings.rho0),
-                        (settings.beta_succ * radius).clamp(
-                            max=settings.trust_region_radius0),
-                        radius))
-        weight_new = torch.where(inside, weight,
-                                 weight * settings.gamma_fail)
-        X_acc, U_acc, K_acc, Sigma_acc = _tree.select(
-            accept, (X_sol, U_sol, data.K, data.Sigma),
-            (c["X_acc"], c["U_acc"], c["K_acc"], c["Sigma_acc"]))
-        if relin:
-            # lane by lane: an accepted solution becomes the next
-            # linearization point, the old one the comparison trajectory
-            X_lin_new, U_lin_new, X_cmp, U_cmp = _tree.select(
-                accept, (X_sol, U_sol, X_lin, U_lin),
-                (X_lin, U_lin, c["X_cmp"], c["U_cmp"]))
-            conv = _convergence_metric(X_lin_new, U_lin_new, X_cmp, U_cmp)
-        else:
-            X_lin_new, U_lin_new = X_lin, U_lin
-            X_cmp, U_cmp = c["X_cmp"], c["U_cmp"]
-            conv = torch.zeros_like(rho)  # reference: always 0
-        new = dict(
-            X_lin=X_lin_new, U_lin=U_lin_new, X_cmp=X_cmp, U_cmp=U_cmp,
-            X_acc=X_acc, U_acc=U_acc, K_acc=K_acc, Sigma_acc=Sigma_acc,
-            radius=radius_new, weight=weight_new, it=c["it"] + 1,
-            success=accept, accepted=c["accepted"] + accept.to(torch.int32),
-            qp_iters=c["qp_iters"] + sol.iterations,
-            qp_refactors=c["qp_refactors"] + sol.refactors,
-            qp_ok=c["qp_ok"] & sol.converged, qp_status=sol.status,
-            rho=rho, conv=conv, warm_x=warm_x, warm_y=warm_y)
-        # lanes whose loop condition is false keep their state
-        c = {k: _tree.select(active, new[k], c[k]) for k in c}
+        with span("scp.accept"):
+            inside = (_matrix_norm2(X_sol - c["X_cmp"], settings.norm_method)
+                      < radius)
+            rho = model_accuracy(model, schedule, X_sol, U_sol, X_lin, U_lin,
+                                 data)
+            accurate = rho <= settings.rho1
+            # a non-converged QP is never accepted; the loop also aborts
+            accept = inside & accurate & sol.converged
+            radius_new = torch.where(
+                inside & ~accurate, radius * settings.beta_fail,
+                torch.where(accept & (rho < settings.rho0),
+                            (settings.beta_succ * radius).clamp(
+                                max=settings.trust_region_radius0),
+                            radius))
+            weight_new = torch.where(inside, weight,
+                                     weight * settings.gamma_fail)
+            X_acc, U_acc, K_acc, Sigma_acc = _tree.select(
+                accept, (X_sol, U_sol, data.K, data.Sigma),
+                (c["X_acc"], c["U_acc"], c["K_acc"], c["Sigma_acc"]))
+            if relin:
+                # lane by lane: an accepted solution becomes the next
+                # linearization point, the old one the comparison trajectory
+                X_lin_new, U_lin_new, X_cmp, U_cmp = _tree.select(
+                    accept, (X_sol, U_sol, X_lin, U_lin),
+                    (X_lin, U_lin, c["X_cmp"], c["U_cmp"]))
+                conv = _convergence_metric(X_lin_new, U_lin_new, X_cmp, U_cmp)
+            else:
+                X_lin_new, U_lin_new = X_lin, U_lin
+                X_cmp, U_cmp = c["X_cmp"], c["U_cmp"]
+                conv = torch.zeros_like(rho)  # reference: always 0
+            new = dict(
+                X_lin=X_lin_new, U_lin=U_lin_new, X_cmp=X_cmp, U_cmp=U_cmp,
+                X_acc=X_acc, U_acc=U_acc, K_acc=K_acc, Sigma_acc=Sigma_acc,
+                radius=radius_new, weight=weight_new, it=c["it"] + 1,
+                success=accept,
+                accepted=c["accepted"] + accept.to(torch.int32),
+                qp_iters=c["qp_iters"] + sol.iterations,
+                qp_refactors=c["qp_refactors"] + sol.refactors,
+                qp_ok=c["qp_ok"] & sol.converged, qp_status=sol.status,
+                rho=rho, conv=conv, warm_x=warm_x, warm_y=warm_y)
+            # lanes whose loop condition is false keep their state
+            c = {k: _tree.select(active, new[k], c[k]) for k in c}
 
     return ScpSolution(
         X=c["X_acc"], U=c["U_acc"], K=c["K_acc"], Sigma=c["Sigma_acc"],

@@ -1,21 +1,29 @@
 """Profiling and timing instrumentation.
 
 Port of `centroidal_mpc_tpu/utils/profiling.py`: wall-clock stage timers
-that wait for the device, solves/s accounting, and a `torch.profiler`
-trace context.  A CUDA tensor's work is waited for with
-`torch.cuda.synchronize` on its device; CPU tensors are done when the
-call returns.
+that wait for the device, and a `torch.profiler` trace context.  A CUDA
+tensor's work is waited for with `torch.cuda.synchronize` on its device;
+CPU tensors are done when the call returns.
+
+The program's own instrumentation lives here too: `span`, the ranges
+that the solver loops (`solver.scp`, `ops.blockqp`, `ops.admm`) open at
+their layer boundaries, recorded only while a torch.profiler session
+records; and `counters`, a snapshot of the program's counters, which
+are always on.
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from centroidal_mpc_tpu_torch import _tree
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _cuda_devices(tree) -> set:
@@ -67,9 +75,9 @@ class StageTimer:
 
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
-    """A torch.profiler session (host ops, and the card's kernels when
-    there is one) whose Chrome trace is written to log_dir/trace.json;
-    a no-op when log_dir is None."""
+    """A torch.profiler session (host ops with the program's spans among
+    them, and the card's kernels when there is one) whose Chrome trace is
+    written to log_dir/trace.json; a no-op when log_dir is None."""
     if log_dir is None:
         yield
         return
@@ -83,31 +91,33 @@ def trace(log_dir: Optional[str] = None):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def measure_solves_per_second(solve_fn, args_fn, batch: int,
-                              repeats: int = 5) -> Dict[str, float]:
-    """Steady-state throughput: best-of-`repeats` timed calls, each with
-    fresh inputs from args_fn(i) so results cannot be cached.  A call is
-    timed by CUDA events on its outputs' card, by the host clock when its
-    outputs are on the CPU; the first call (its set-up and first-call
-    costs) is not timed."""
-    out = solve_fn(*args_fn(0))
-    devices = _cuda_devices(out)
-    _synchronize(out)
-    times: List[float] = []
-    for i in range(repeats):
-        args = args_fn(i + 1)
-        if devices:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            solve_fn(*args)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) * 1e-3)
-        else:
-            t0 = time.perf_counter()
-            solve_fn(*args)
-            times.append(time.perf_counter() - t0)
-    best = min(times)
-    return {"best_s": best, "solves_per_s": batch / best,
-            "mean_s": sum(times) / len(times)}
+def span(name: str):
+    """A range named `cmpc.<name>` on the profiler's clock while a
+    torch.profiler session records; at any other time a shared no-op
+    context, at the cost of one flag test.
+
+    The range is a host record of the kind an operator makes, and nests
+    like one: its parent is the range that contains it.  It is not
+    `torch.profiler.record_function`'s user annotation, which the
+    profiler also mirrors onto the device's timeline as one interval from
+    the first kernel launched inside it to the last: that interval would
+    cover the device's idle time for every reader of the timeline."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast("cmpc." + name)
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of every counter of the program: the kernel wrappers'
+    `launches` (`ops.block_tridiag`, `ops.lqr_kernel`: calls of the solve
+    API) and the solver loops' `counts` (`solver.scp`: SCP passes;
+    `ops.admm`: ADMM segments, iterations and refactor calls, shared by
+    the dense and block solvers), with one `sync.*` count a blocking host
+    read.  The counters only grow; subtract two snapshots."""
+    from centroidal_mpc_tpu_torch.ops import admm, block_tridiag, lqr_kernel
+    from centroidal_mpc_tpu_torch.solver import scp
+    out: Dict[str, int] = {}
+    for counts in (block_tridiag.launches, lqr_kernel.launches, admm.counts,
+                   scp.counts):
+        out.update(counts)
+    return out

@@ -1,10 +1,9 @@
 """The port's profiling helpers (utils/profiling.py) on the CPU: the stage
-timer and its report, the torch.profiler trace context (and its no-op
-form), and the solves/s measurement on the host clock."""
+timer and its report, and the torch.profiler trace context (and its no-op
+form).  The program's spans and counters: test_torch_tracing.py."""
 import json
 import time
 
-import pytest
 import torch
 
 from centroidal_mpc_tpu_torch.utils import profiling
@@ -38,19 +37,3 @@ def test_trace_is_a_no_op_without_a_directory(tmp_path):
     with profiling.trace(None) as prof:
         torch.ones(3).sum()
     assert prof is None
-
-
-@pytest.mark.parametrize("batch", [1, 16])
-def test_measure_solves_per_second_on_the_host_clock(batch):
-    calls = []
-
-    def solve(a):
-        calls.append(a)
-        time.sleep(0.002)
-        return torch.full((batch,), a)
-
-    out = profiling.measure_solves_per_second(solve, lambda i: (float(i),),
-                                              batch, repeats=3)
-    assert calls == [0.0, 1.0, 2.0, 3.0]        # fresh inputs every call
-    assert 0.002 <= out["best_s"] <= out["mean_s"]
-    assert out["solves_per_s"] == pytest.approx(batch / out["best_s"])
