@@ -17,7 +17,12 @@ products, Cholesky factors and triangular solves are PyTorch library
 calls: the JAX package computes them in XLA, outside any Pallas kernel.
 
 `counts` counts the ADMM loop's work and its blocking host reads, for
-this solver and the block solver (`ops.blockqp`) alike; the loops' spans
+this solver and the block solver (`ops.blockqp`) alike, and how the block
+solver ran its segments on the card: `admm.graph_captures`, the segments
+captured as a CUDA graph (one a new combination of device, shapes and
+settings), and `admm.graph_replays`, the segments run as a replay of
+one (all of them on the card; none on the CPU, and none in this solver,
+which dispatches its segments eagerly).  The loops' spans
 (`utils.profiling.span`) are `qp.scale`, `admm.factor`, `admm.segment`
 and one `sync.*` a blocking read.
 """
@@ -45,9 +50,11 @@ STATUS_DUAL_INFEASIBLE = 3
 # on every lane of the batch), refactor calls after the first factor, and
 # the blocking host reads: the end-of-loop test (`sync.admm`, one a
 # segment and one at the loop's end) and the refactored lanes' gather
-# (`sync.refactor`, one a segment with adaptive rho).
+# (`sync.refactor`, one a segment with adaptive rho); and the block
+# solver's captured segment graphs and their replays (module docstring).
 counts = {"admm.segments": 0, "admm.iterations": 0,
-          "admm.refactor_calls": 0, "sync.admm": 0, "sync.refactor": 0}
+          "admm.refactor_calls": 0, "sync.admm": 0, "sync.refactor": 0,
+          "admm.graph_captures": 0, "admm.graph_replays": 0}
 
 
 @dataclasses.dataclass(frozen=True)

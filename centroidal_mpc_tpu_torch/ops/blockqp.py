@@ -17,18 +17,24 @@ Every tensor carries a leading scenario axis B; per-scenario scalars
 (residuals, step sizes, statuses) are (B,) tensors.  The JAX package runs
 this loop once for the whole vmapped batch and freezes converged lanes by
 masking; the port does the same with `torch.where`, and leaves the loop
-when no lane is active (one host sync per residual segment).  The loop
+when no lane is active (one host sync per residual segment).  A segment
+has no host read, so on the card it is captured once as a CUDA graph per
+device, shapes and settings, and replayed (`_SegmentGraph`); on the CPU it
+runs eagerly.  The loop
 counts its work in `ops.admm.counts` and opens the spans `qp.scale`,
 `admm.factor`, `admm.segment`, `qp.polish` and one `sync.*` a blocking
 host read (`utils.profiling.span`).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
 from typing import NamedTuple, Optional
 
 import torch
 
+from centroidal_mpc_tpu_torch import _tree
 from centroidal_mpc_tpu_torch._tree import select
 from centroidal_mpc_tpu_torch.models.centroidal import (CentroidalModel,
                                                         TrajectoryData)
@@ -38,6 +44,7 @@ from centroidal_mpc_tpu_torch.ops.admm import (QPSettings, STATUS_MAX_ITER,
                                                STATUS_PRIMAL_INFEASIBLE,
                                                STATUS_DUAL_INFEASIBLE,
                                                counts)
+from centroidal_mpc_tpu_torch.ops import block_tridiag
 from centroidal_mpc_tpu_torch.ops.block_tridiag import (_matvec,
                                                         factor_batched,
                                                         solve_assoc,
@@ -705,6 +712,275 @@ def _polish(s: _Scaled, settings: QPSettings, sigma: float, w: WVars,
     return w_p, z_p, y_p, y_lo
 
 
+def _max_iter(settings: QPSettings) -> int:
+    """The iteration cap, rounded up to whole segments."""
+    n_segments = -(-settings.max_iter // settings.check_interval)
+    return n_segments * settings.check_interval
+
+
+def _admm_iter(s: _Scaled, settings: QPSettings, backsolve, rho_g: ZGroups,
+               fac, w: WVars, z: ZGroups, y: ZGroups):
+    """One over-relaxed ADMM iteration at per-row step sizes rho_g."""
+    sigma, alpha = settings.sigma, settings.alpha
+    nx, nu = s.Ah.shape[2], s.Bh.shape[-1]
+    rz_y = ZGroups(*(rr * zz - yy for zz, yy, rr in zip(z, y, rho_g)))
+    rhs = _wmap(lambda ww, at, qq: sigma * ww + at - qq,
+                w, _apply_AT(s, rz_y), s.q)
+    w_t = _solve(backsolve, fac, rhs, nx, nu)
+    z_t = _apply_A(s, w_t)
+    w_new = _wmap(lambda wt, ww: alpha * wt + (1 - alpha) * ww, w_t, w)
+    z_rel = _zmap(lambda zt, zz: alpha * zt + (1 - alpha) * zz, z_t, z)
+    z_new = ZGroups(*(torch.clamp(zr + yy / rr, lo, hi)
+                      for zr, yy, rr, lo, hi in
+                      zip(z_rel, y, rho_g, s.l, s.u)))
+    y_new = ZGroups(*(yy + rr * (zr - zn) for yy, rr, zr, zn in
+                      zip(y, rho_g, z_rel, z_new)))
+    return w_new, z_new, y_new
+
+
+class _LoopState(NamedTuple):
+    """What the ADMM loop carries from one residual segment to the next,
+    every leaf with the leading lane axis: the iterate, the best-so-far
+    iterate and its residuals, each lane's termination state and step
+    size, `frozen` (the lanes that keep their state in the next segment:
+    done or out of iterations) and, with adaptive rho only, `run_on` (the
+    lanes whose rho moved and that run on: the ones to refactor)."""
+
+    w: WVars
+    z: ZGroups
+    y: ZGroups
+    wb: WVars
+    yb: ZGroups
+    pb: torch.Tensor
+    db: torch.Tensor
+    it: torch.Tensor
+    prim: torch.Tensor
+    dual: torch.Tensor
+    done: torch.Tensor
+    status: torch.Tensor
+    stall: torch.Tensor
+    rho_b: torch.Tensor
+    frozen: torch.Tensor
+    run_on: Optional[torch.Tensor]
+
+
+def _segment(s: _Scaled, settings: QPSettings, backsolve, rho_g: ZGroups,
+             fac, st: _LoopState) -> _LoopState:
+    """One residual segment: `check_interval` ADMM iterations, the
+    residuals, the infeasibility certificates, the adaptive-rho ratio
+    test, the best-so-far and stall bookkeeping, and the state of the next
+    check.  No host read: the same operations in the same order whatever
+    the data, so that on the card it can be captured once and replayed."""
+    frozen, rho_b = st.frozen, st.rho_b
+    i32 = dict(dtype=torch.int32, device=frozen.device)
+    max_it = _max_iter(settings)
+    w2, z2, y2 = st.w, st.z, st.y
+    for _ in range(settings.check_interval):
+        w2, z2, y2 = _admm_iter(s, settings, backsolve, rho_g, fac,
+                                w2, z2, y2)
+
+    (prim_n, dual_n, eps_prim, eps_dual,
+     prim_scale, dual_scale) = _residuals(s, settings, w2, z2, y2)
+    done_new = (prim_n < eps_prim) & (dual_n < eps_dual)
+    status_new = torch.where(
+        done_new, torch.full((), STATUS_SOLVED, **i32),
+        torch.full((), STATUS_MAX_ITER, **i32))
+    if settings.check_infeasibility:
+        dw = _wmap(lambda a, b: a - b, w2, st.w)
+        dy = _zmap(lambda a, b: a - b, y2, st.y)
+        pinf, dinf = _certificates(s, settings, dw, dy)
+        status_new = torch.where(
+            pinf & ~done_new,
+            torch.full((), STATUS_PRIMAL_INFEASIBLE, **i32),
+            torch.where(dinf & ~done_new,
+                        torch.full((), STATUS_DUAL_INFEASIBLE, **i32),
+                        status_new))
+        done_new = done_new | ((pinf | dinf) & ~done_new)
+
+    rho_next = rho_b
+    if settings.adaptive_rho:
+        ratio = torch.sqrt(
+            (prim_n / prim_scale.clamp(min=1e-30))
+            / (dual_n / dual_scale.clamp(min=1e-30)).clamp(min=1e-30))
+        new_rho = (rho_b * ratio).clamp(1e-6, 1e6)
+        trigger = (((ratio > settings.adaptive_rho_tol)
+                    | (ratio < 1.0 / settings.adaptive_rho_tol))
+                   & ~done_new)
+        rho_next = torch.where(trigger, new_rho, rho_b)
+
+    w3, z3, y3 = select(frozen, (st.w, st.z, st.y), (w2, z2, y2))
+    # best-so-far safeguard: track the iterate with the smallest
+    # max(prim, dual) and return it if the final one is worse
+    improve = ((torch.maximum(prim_n, dual_n)
+                < 0.99 * torch.maximum(st.pb, st.db)) & ~frozen)
+    stall = torch.where(frozen, st.stall,
+                        torch.where(improve, torch.zeros_like(st.stall),
+                                    st.stall + 1))
+    wb, yb = select(improve, (w3, y3), (st.wb, st.yb))
+    pb = torch.where(improve, prim_n, st.pb)
+    db = torch.where(improve, dual_n, st.db)
+    if settings.stall_segments > 0:
+        done_new = done_new | (stall >= settings.stall_segments)
+    it = torch.where(frozen, st.it, st.it + settings.check_interval)
+    done = st.done | (done_new & ~frozen)
+    return _LoopState(
+        w=w3, z=z3, y=y3, wb=wb, yb=yb, pb=pb, db=db, it=it,
+        prim=torch.where(frozen, st.prim, prim_n),
+        dual=torch.where(frozen, st.dual, dual_n), done=done,
+        status=torch.where(frozen, st.status, status_new), stall=stall,
+        rho_b=torch.where(frozen, rho_b, rho_next),
+        frozen=done | (it >= max_it),
+        run_on=(trigger & ~done & (it < max_it) if settings.adaptive_rho
+                else None))
+
+
+def _leaves(tree) -> list:
+    """The tensor leaves of nested tuples, in order (None skipped)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [t for part in tree for t in _leaves(part)]
+    return []
+
+
+def _copy_leaves(dst, src) -> None:
+    """Copy every tensor leaf of src into the matching leaf of dst, one
+    multi-tensor copy a dtype."""
+    groups = {}
+    for d, v in zip(_leaves(dst), _leaves(src), strict=True):
+        pair = groups.setdefault(d.dtype, ([], []))
+        pair[0].append(d)
+        pair[1].append(v)
+    for ds, vs in groups.values():
+        torch._foreach_copy_(ds, vs)
+
+
+class _EagerSegments:
+    """The segments dispatched one operation at a time (CPU tensors)."""
+
+    def __init__(self, s, settings, backsolve, rho_g, fac, st):
+        self.s, self.settings, self.backsolve = s, settings, backsolve
+        self.rho_g, self.fac, self.state = rho_g, fac, st
+
+    def run(self) -> None:
+        self.state = _segment(self.s, self.settings, self.backsolve,
+                              self.rho_g, self.fac, self.state)
+
+    def set_factor(self, rho_g, fac) -> None:
+        self.rho_g, self.fac = rho_g, fac
+
+    def result(self) -> _LoopState:
+        return self.state
+
+
+class _SegmentGraph:
+    """One segment captured as a CUDA graph and replayed at every segment
+    of every solve of the same shapes and settings.
+
+    The graph reads and writes fixed-address buffers: the scaled problem,
+    the step sizes, the factor and the loop state.  `load` copies a
+    solve's inputs into them, `set_factor` a refactored factor, and
+    `result` copies the final state out.  The kernel wrappers' launch
+    counters grow once, during capture; each replay adds that growth, so
+    they count the solve API's calls as the eager loop does.  While a
+    capture runs, other threads may work on the card, but not draw from
+    its default random generator (PyTorch ties it to every capture)."""
+
+    def __init__(self, s, settings, backsolve, rho_g, fac, st):
+        self.device = st.frozen.device
+        self.s, self.rho_g, self.fac, self.state = _tree.map_tensors(
+            torch.empty_like, (s, rho_g, fac, st))
+        self.load(s, rho_g, fac, st)
+        launches = block_tridiag.launches
+        before = dict(launches)
+
+        def body():
+            return _segment(self.s, settings, backsolve, self.rho_g,
+                            self.fac, self.state)
+
+        try:
+            with torch.cuda.device(self.device):
+                # warm up outside the capture (library handles,
+                # workspaces); the state is left as it was
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    body()
+                torch.cuda.current_stream().wait_stream(side)
+                warm = dict(launches)
+                # thread-local: CUDA then forbids the potentially unsafe
+                # calls (cudaMalloc) of this thread alone, not those of
+                # other threads (say, the server's control loop)
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph,
+                                      capture_error_mode="thread_local"):
+                    _copy_leaves(self.state, body())
+            self.launches = {k: launches[k] - warm[k] for k in launches}
+        finally:
+            launches.update(before)     # neither ran a solve's segment
+        counts["admm.graph_captures"] += 1
+
+    def load(self, s, rho_g, fac, st) -> None:
+        _copy_leaves((self.s, self.rho_g, self.fac, self.state),
+                     (s, rho_g, fac, st))
+
+    def run(self) -> None:
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+        for k, n in self.launches.items():
+            block_tridiag.launches[k] += n
+        counts["admm.graph_replays"] += 1
+
+    def set_factor(self, rho_g, fac) -> None:
+        _copy_leaves((self.rho_g, self.fac), (rho_g, fac))
+
+    def result(self) -> _LoopState:
+        return _tree.map_tensors(torch.clone, self.state)
+
+
+# Captured segments by shapes and settings, the most recently used last.
+# A solve takes its graph out while it runs and puts it back at its end,
+# so two solves (say, of two threads) never share buffers; the oldest
+# beyond the cap are dropped with their memory.
+_SEGMENT_GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
+_SEGMENT_GRAPHS_KEPT = 4
+_SEGMENT_GRAPHS_LOCK = threading.Lock()
+
+
+def _graph_key(s: _Scaled, settings: QPSettings, rho_g, fac,
+               st: _LoopState) -> tuple:
+    """What a captured segment bakes in: the device, the settings (the
+    backend among them) and the shape and dtype of every buffer."""
+    return (s.Ah.device, settings,
+            tuple((t.shape, t.dtype) for t in _leaves((s, rho_g, fac, st))))
+
+
+def _segments(s: _Scaled, settings: QPSettings, backsolve, rho_g, fac,
+              st: _LoopState):
+    """The runner of a solve's segments: eager for CPU tensors; on the
+    card the graph of these shapes and settings, captured on first use.
+    Returns (runner, cache key or None)."""
+    if s.Ah.device.type != "cuda":
+        return _EagerSegments(s, settings, backsolve, rho_g, fac, st), None
+    key = _graph_key(s, settings, rho_g, fac, st)
+    with _SEGMENT_GRAPHS_LOCK:
+        graph = _SEGMENT_GRAPHS.pop(key, None)
+    if graph is None:
+        graph = _SegmentGraph(s, settings, backsolve, rho_g, fac, st)
+    else:
+        graph.load(s, rho_g, fac, st)
+    return graph, key
+
+
+def _keep_graph(key, graph) -> None:
+    """Put a solve's graph back into the cache as its newest entry."""
+    with _SEGMENT_GRAPHS_LOCK:
+        _SEGMENT_GRAPHS[key] = graph
+        _SEGMENT_GRAPHS.move_to_end(key)
+        while len(_SEGMENT_GRAPHS) > _SEGMENT_GRAPHS_KEPT:
+            _SEGMENT_GRAPHS.popitem(last=False)
+
+
 def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
                        settings: QPSettings, nx: int, nu: int):
     """Batch-first ADMM loop (+ optional polish): fixed rho, or adaptive
@@ -717,7 +993,9 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
     Lanes that are done (converged, certified infeasible or stalled) or
     out of iterations are frozen: they run along but keep their state,
     the semantics a vmapped while_loop gives the per-scenario loop.  The
-    loop ends when every lane is frozen.  Returns
+    loop ends when every lane is frozen.  Each segment (`_segment`) runs
+    eagerly on the CPU and as a replayed CUDA graph on the card; the
+    refactors stay outside it.  Returns
     (w, y, y_lo, it, prim, dual, status, rho, refactors) with (B,)
     termination state; y_lo is the low part of the polish's two-float
     dual (zeros where the polish was not accepted), rho each lane's final
@@ -725,9 +1003,7 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
     """
     nb = s.sh.shape[0]
     dtype, dev = s.sh.dtype, s.sh.device
-    sigma, alpha = settings.sigma, settings.alpha
-    n_segments = -(-settings.max_iter // settings.check_interval)
-    max_it = n_segments * settings.check_interval
+    sigma = settings.sigma
     factorize, backsolve = _backend(settings)
 
     def refactor_lanes(rho_b, fac, lanes):
@@ -746,114 +1022,53 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
         fac = factorize(*_assemble_blocks(s, rho_g, sigma))
     refactors = torch.zeros(nb, dtype=torch.int32, device=dev)
 
-    def admm_iter(w, z, y, rho_g, fac):
-        rz_y = ZGroups(*(rr * zz - yy for zz, yy, rr in zip(z, y, rho_g)))
-        rhs = _wmap(lambda ww, at, qq: sigma * ww + at - qq,
-                    w, _apply_AT(s, rz_y), s.q)
-        w_t = _solve(backsolve, fac, rhs, nx, nu)
-        z_t = _apply_A(s, w_t)
-        w_new = _wmap(lambda wt, ww: alpha * wt + (1 - alpha) * ww, w_t, w)
-        z_rel = _zmap(lambda zt, zz: alpha * zt + (1 - alpha) * zz, z_t, z)
-        z_new = ZGroups(*(torch.clamp(zr + yy / rr, lo, hi)
-                          for zr, yy, rr, lo, hi in
-                          zip(z_rel, y, rho_g, s.l, s.u)))
-        y_new = ZGroups(*(yy + rr * (zr - zn) for yy, rr, zr, zn in
-                          zip(y, rho_g, z_rel, z_new)))
-        return w_new, z_new, y_new
-
-    z = _apply_A(s, w)
     i32 = dict(dtype=torch.int32, device=dev)
     it = torch.zeros(nb, **i32)
     prim = torch.full((nb,), float("inf"), dtype=dtype, device=dev)
     dual = prim.clone()
     done = torch.zeros(nb, dtype=torch.bool, device=dev)
-    status = torch.zeros(nb, **i32)
-    wb, yb, pb, db = w, y, prim, dual
-    stall = torch.zeros(nb, **i32)
+    st = _LoopState(
+        w=w, z=_apply_A(s, w), y=y, wb=w, yb=y, pb=prim, db=dual, it=it,
+        prim=prim, dual=dual, done=done, status=torch.zeros(nb, **i32),
+        stall=torch.zeros(nb, **i32), rho_b=rho_b,
+        frozen=done | (it >= _max_iter(settings)),
+        run_on=torch.zeros_like(done) if settings.adaptive_rho else None)
+    loop, key = _segments(s, settings, backsolve, rho_g, fac, st)
 
     while True:
-        frozen = done | (it >= max_it)
         counts["sync.admm"] += 1
         with span("sync.admm"):
-            stop = bool(frozen.all())       # one host sync a segment
+            stop = bool(loop.state.frozen.all())   # one host sync a segment
         if stop:
             break
         counts["admm.segments"] += 1
         counts["admm.iterations"] += settings.check_interval
         with span("admm.segment"):
-            w2, z2, y2 = w, z, y
-            for _ in range(settings.check_interval):
-                w2, z2, y2 = admm_iter(w2, z2, y2, rho_g, fac)
-
-            (prim_n, dual_n, eps_prim, eps_dual,
-             prim_scale, dual_scale) = _residuals(s, settings, w2, z2, y2)
-            done_new = (prim_n < eps_prim) & (dual_n < eps_dual)
-            status_new = torch.where(
-                done_new, torch.full((), STATUS_SOLVED, **i32),
-                torch.full((), STATUS_MAX_ITER, **i32))
-            if settings.check_infeasibility:
-                dw = _wmap(lambda a, b: a - b, w2, w)
-                dy = _zmap(lambda a, b: a - b, y2, y)
-                pinf, dinf = _certificates(s, settings, dw, dy)
-                status_new = torch.where(
-                    pinf & ~done_new,
-                    torch.full((), STATUS_PRIMAL_INFEASIBLE, **i32),
-                    torch.where(dinf & ~done_new,
-                                torch.full((), STATUS_DUAL_INFEASIBLE, **i32),
-                                status_new))
-                done_new = done_new | ((pinf | dinf) & ~done_new)
-
-            rho_next = rho_b
-            if settings.adaptive_rho:
-                ratio = torch.sqrt(
-                    (prim_n / prim_scale.clamp(min=1e-30))
-                    / (dual_n / dual_scale.clamp(min=1e-30)).clamp(min=1e-30))
-                new_rho = (rho_b * ratio).clamp(1e-6, 1e6)
-                trigger = (((ratio > settings.adaptive_rho_tol)
-                            | (ratio < 1.0 / settings.adaptive_rho_tol))
-                           & ~done_new)
-                rho_next = torch.where(trigger, new_rho, rho_b)
-
-            w3, z3, y3 = select(frozen, (w, z, y), (w2, z2, y2))
-            # best-so-far safeguard: track the iterate with the smallest
-            # max(prim, dual) and return it if the final one is worse
-            improve = ((torch.maximum(prim_n, dual_n)
-                        < 0.99 * torch.maximum(pb, db)) & ~frozen)
-            stall = torch.where(frozen, stall,
-                                torch.where(improve, torch.zeros_like(stall),
-                                            stall + 1))
-            wb, yb = select(improve, (w3, y3), (wb, yb))
-            pb = torch.where(improve, prim_n, pb)
-            db = torch.where(improve, dual_n, db)
-            if settings.stall_segments > 0:
-                done_new = done_new | (stall >= settings.stall_segments)
-            w, z, y = w3, z3, y3
-            rho_b = torch.where(frozen, rho_b, rho_next)
-            it = torch.where(frozen, it, it + settings.check_interval)
-            prim = torch.where(frozen, prim, prim_n)
-            dual = torch.where(frozen, dual, dual_n)
-            done = done | (done_new & ~frozen)
-            status = torch.where(frozen, status, status_new)
+            loop.run()
         if settings.adaptive_rho:
             # refactor only the lanes that triggered and run on; a
             # segment after which none does launches no factor
-            run_on = trigger & ~done & (it < max_it)
             counts["sync.refactor"] += 1
             with span("sync.refactor"):
-                lanes = run_on.nonzero()[:, 0]
+                lanes = loop.state.run_on.nonzero()[:, 0]
             if lanes.numel():
                 counts["admm.refactor_calls"] += 1
                 with span("admm.factor"):
-                    fac = refactor_lanes(rho_b, fac, lanes)
-                    rho_g = _rho_groups(settings, rho_b, s)
+                    rho_b = loop.state.rho_b
+                    loop.set_factor(_rho_groups(settings, rho_b, s),
+                                    refactor_lanes(rho_b, loop.fac, lanes))
                     refactors = refactors.index_add(
                         0, lanes, torch.ones_like(lanes, dtype=torch.int32))
+    st = loop.result()
+    if key is not None:
+        _keep_graph(key, loop)
 
     # adopt the best-so-far iterate where it beats the final one
-    adopt = torch.maximum(pb, db) < torch.maximum(prim, dual)
-    w, y = select(adopt, (wb, yb), (w, y))
-    prim = torch.where(adopt, pb, prim)
-    dual = torch.where(adopt, db, dual)
+    adopt = torch.maximum(st.pb, st.db) < torch.maximum(st.prim, st.dual)
+    w, y = select(adopt, (st.wb, st.yb), (st.w, st.y))
+    prim = torch.where(adopt, st.pb, st.prim)
+    dual = torch.where(adopt, st.db, st.dual)
+    it, status = st.it, st.status
     y_lo = ZGroups(*(torch.zeros_like(v) for v in y))
 
     if settings.polish:
@@ -874,7 +1089,7 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
             status = torch.where(newly, torch.full((), STATUS_SOLVED, **i32),
                                  status)
 
-    return w, y, y_lo, it, prim, dual, status, rho_b, refactors
+    return w, y, y_lo, it, prim, dual, status, st.rho_b, refactors
 
 
 @dataclasses.dataclass(frozen=True)

@@ -139,6 +139,18 @@ def test_counters_keep_the_launch_dicts(prob):
     assert snap["admm.segments"] != admm.counts["admm.segments"]
 
 
+def test_counters_list_the_graph_counters(prob):
+    """The block loop's CUDA graph counters are among the program's
+    counters, the ADMM module says what they count, and a CPU solve
+    leaves both where they were."""
+    names = ("admm.graph_captures", "admm.graph_replays")
+    _, delta = _solve(prob, _settings(prob, "block"), _inputs(prob, 2))
+    for name in names:
+        assert name in profiling.counters() and name in admm.counts
+        assert f"`{name}`" in admm.__doc__
+        assert delta[name] == 0
+
+
 @pytest.mark.cuda
 def test_sync_counters_find_every_sync_on_the_card():
     """Every call that PyTorch reports as synchronizing the card inside a
