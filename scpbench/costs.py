@@ -1,12 +1,13 @@
-"""Frozen yardstick: the work of the block-tridiagonal kernels and the
-card's published peaks.
+"""Frozen yardstick: the work of the block-tridiagonal and DARE kernels
+and the card's published peaks.
 
 Copied from the program's `ops/cuda_lib.py` (Cost, tri),
-`ops/block_tridiag.py` (sweep_cost, factor_cost) and `chip_smoke.py`
-(the peaks and `bound`), so that a later change to the program cannot
-move the bounds it is measured against.  Bytes count each input read
-once and each output written once, a triangular or symmetric block as its
-lower triangle; flops count two a multiply-add.
+`ops/block_tridiag.py` (sweep_cost, factor_cost), `ops/lqr_kernel.py`
+(lqr_cost) and `chip_smoke.py` (the peaks and `bound`), so that a later
+change to the program cannot move the bounds it is measured against.
+Bytes count each input read once and each output written once, a
+triangular or symmetric block as its lower triangle; flops count two a
+multiply-add.
 """
 from __future__ import annotations
 
@@ -45,6 +46,27 @@ def factor_cost(B: int, n1: int, V: int, itemsize: int = 4) -> Cost:
     return Cost(bytes=B * (2 * n1 * t + 3 * n * V * V) * itemsize,
                 flops=B * (n1 * 2 * V ** 3 // 3
                            + n * (4 * V * V * (V + 1) + t)))
+
+
+def lqr_cost(S: int, nx: int, nu: int, n_iter: int = 2,
+             itemsize: int = 4) -> Cost:
+    """One launch of the truncated DARE over S problems, in the
+    substitution form, which forms no H^-1: A, B and the symmetric Q, R
+    in, K out.  Per gain step B'P, the symmetric H = R + B'P B, its
+    Cholesky factor L (nu^3/3), B'PA and Y = L^-1 B'PA (nu^2 nx); per
+    update the symmetric Q + (A'P) A and the symmetric P - Y'Y; then
+    K = -L^-T Y by back substitution (nu^2 nx)."""
+    gains = (2 * nu * nx * nx              # B'P
+             + 2 * tri(nu) * nx + tri(nu)  # H = R + B'P B
+             + nu ** 3 // 3                # Cholesky
+             + 2 * nu * nx * nx            # B'PA
+             + nu * nu * nx)               # Y = L^-1 B'PA
+    update = (2 * nx ** 3 + 2 * tri(nx) * nx + tri(nx)  # Q + (A'P) A
+              + 2 * tri(nx) * nu + tri(nx))             # P - Y'Y
+    pairs = S * (nx * nx + 2 * nx * nu)    # A, B in and K out
+    return Cost(bytes=(pairs + tri(nx) + tri(nu)) * itemsize,
+                flops=S * ((n_iter + 1) * gains + n_iter * update
+                           + nu * nu * nx))
 
 
 def bound_s(cost: Cost) -> tuple[float, str]:

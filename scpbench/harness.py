@@ -94,7 +94,9 @@ def benchmark_entries(cell: Cell):
 
 def build_program(cell: Cell, device):
     """The program's problem, from the configuration file and the cell's
-    overrides, through the program's own `presets.build_problem`."""
+    overrides, through the program's own `presets.build_problem`; a
+    configuration that states `"stochastic": true` builds the
+    chance-constrained problem."""
     from centroidal_mpc_tpu_torch.config import gaits, presets, robots
     from centroidal_mpc_tpu_torch.ops.admm import QPSettings
     from centroidal_mpc_tpu_torch.solver.scp import ScpSettings
@@ -117,7 +119,8 @@ def build_program(cell: Cell, device):
             "state_cost_diag", "control_cost_diag")},
         scp=scp)
     dtype = getattr(torch, cfg["dtype"])
-    return presets.build_problem(preset, dtype=dtype, device=device)
+    return presets.build_problem(preset, dtype=dtype, device=device,
+                                 stochastic=bool(cfg.get("stochastic", False)))
 
 
 def launch_counts():

@@ -1,8 +1,8 @@
 """Readings of a cell's check numbers, for setting its limits.
 
     python3 scpbench/readings.py --workload <cell> --seeds 1,2,... \
-        --seconds <s> [--control-seeds 7,8,9] [--fault eps10|eps1000|nodual]
-        [--out <file>]
+        --seconds <s> [--control-seeds 7,8,9]
+        [--fault eps10|eps1000|nodual|nobackoff|dare2] [--out <file>]
 
 In one process (set-up once): for each seed a window of the program at
 the cell's load, then the check's numbers of its answers, as a run
@@ -12,10 +12,11 @@ configuration's reference computed in float32 with TF32 products
 inputs, compared with the float64 reference by the same numbers.  For an
 MPC cell the control runs its own chain of ticks, each from its own last
 plan, over `--control-ticks` ticks.  With `--fault`, the program's
-windows run with a fault planted in its ADMM's stopping test (`FAULTS`),
-for the readings that a number's upper end is set from.  One JSON line
-per reading.
+windows run with a fault planted in its ADMM's stopping test (`FAULTS`)
+or in its chance constraints (`CHANCE_FAULTS`), for the readings that a
+number's upper end is set from.  One JSON line per reading.
 """
+import importlib
 import json
 import os
 import sys
@@ -51,8 +52,45 @@ def loosened(real, prim_factor: float, dual_factor: float):
     return residuals
 
 
+def zero_backoffs(real):
+    """The program's `_chance_backoffs` giving zeros: the chance
+    constraints dropped, the deterministic QP's answer."""
+    def backoffs(*args, **kwargs):
+        return torch.zeros_like(real(*args, **kwargs))
+    return backoffs
+
+
+def two_step_gains(real):
+    """The program's `models.centroidal.lqr_gain` at 2 DARE steps
+    whatever the settings ask: the gains, and the covariance and the
+    back-offs built from them, of the upstream's 2-step DARE."""
+    def lqr_gain(model, A, B, n_iter: int = 2):
+        return real(model, A, B, 2)
+    return lqr_gain
+
+
+# faults of the chance constraints: (module of the program, function,
+# its replacement's maker)
+CHANCE_FAULTS = {
+    "nobackoff": ("centroidal_mpc_tpu_torch.ops.blockqp",
+                  "_chance_backoffs", zero_backoffs),
+    "dare2": ("centroidal_mpc_tpu_torch.models.centroidal", "lqr_gain",
+              two_step_gains)}
+
+
+def chance_fault(fault: str):
+    """(module, name, replacement) that plants a fault of CHANCE_FAULTS."""
+    name, attr, make = CHANCE_FAULTS[fault]
+    mod = importlib.import_module(name)
+    return mod, attr, make(getattr(mod, attr))
+
+
 def plant(fault: str):
-    """Plants a fault of FAULTS in the program (for this process)."""
+    """Plants a fault of FAULTS or CHANCE_FAULTS in the program (for this
+    process)."""
+    if fault in CHANCE_FAULTS:
+        setattr(*chance_fault(fault))
+        return
     from centroidal_mpc_tpu_torch.ops import blockqp
     blockqp._residuals = loosened(blockqp._residuals, *FAULTS[fault])
 
@@ -115,7 +153,8 @@ def main():
     ap.add_argument("--control-ticks", type=int, default=62)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
-    ap.add_argument("--fault", choices=sorted(FAULTS), default=None)
+    ap.add_argument("--fault", choices=sorted({*FAULTS, *CHANCE_FAULTS}),
+                    default=None)
     args = ap.parse_args()
     cell = harness.Cell.find(args.workload)
     dev = args.device

@@ -1,6 +1,7 @@
 """Shared set-up of the benchmark's CPU tests: a copy of the benchmark's
-files in a temporary folder, with a small configuration (solo12's trot
-at N=18, `solo12_trot_mini`) and small cells beside the real ones."""
+files in a temporary folder, with small configurations (solo12's trot
+at N=18, `solo12_trot_mini`; its chance-constrained trot at N=32,
+`solo12_trot_stoch_mini`) and small cells beside the real ones."""
 from __future__ import annotations
 
 import json
@@ -18,6 +19,11 @@ if str(REPO) not in sys.path:
 
 MINI_GAIT = dict(step_length=0.0, step_height=0.05, step_knots=6,
                  support_knots=2, nb_steps=1)
+# one trot cycle that steps 5 cm: long enough swings that the solve is
+# sound, a stride that makes the chance back-offs bind (at MINI_GAIT's
+# standing trot they leave every friction row slack)
+STOCH_MINI_GAIT = dict(step_length=0.05, step_height=0.05, step_knots=10,
+                       support_knots=4, nb_steps=1)
 
 
 def cuda_available() -> bool:
@@ -27,22 +33,31 @@ def cuda_available() -> bool:
 def mini_root(tmp: pathlib.Path, dtype: str = "float64",
               batch: int = 4, compared=None) -> pathlib.Path:
     """A benchmark folder under tmp/scpbench with BENCHMARK.json beside
-    it, holding the `solo12_trot_mini` configuration and the cells
-    `mini_batch` and `mini_mpc`, with the real cells' limits (of a cell
+    it, holding the `solo12_trot_mini` and `solo12_trot_stoch_mini`
+    configurations and the cells `mini_batch`, `mini_mpc` and
+    `mini_stoch` (the chance-constrained configuration under
+    `trot165_b128`'s traffic), with the real cells' limits (of a cell
     that `compared` names, of the numbers it lists only)."""
     root = tmp / "scpbench"
     shutil.copytree(BENCH, root,
                     ignore=shutil.ignore_patterns("tests", "__pycache__"))
     shutil.copy(REPO / "BENCHMARK.json", tmp / "BENCHMARK.json")
-    cfg = json.loads((root / "configs" / "solo12_trot.json").read_text())
-    cfg.update(name="solo12_trot_mini", dtype=dtype)
-    cfg["gait"].update(MINI_GAIT)
-    (root / "configs" / "solo12_trot_mini.json").write_text(json.dumps(cfg))
-    for name, real, extra in (
-            ("mini_batch", "trot165_b128", dict(batch=batch)),
-            ("mini_mpc", "trot165_mpc_w20", dict(window=8, episode_ticks=3))):
+    for real, name, gait in (("solo12_trot", "solo12_trot_mini", MINI_GAIT),
+                             ("solo12_trot_stoch", "solo12_trot_stoch_mini",
+                              STOCH_MINI_GAIT)):
+        cfg = json.loads((root / "configs" / f"{real}.json").read_text())
+        cfg.update(name=name, dtype=dtype)
+        cfg["gait"].update(gait)
+        (root / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+    for name, real, config, extra in (
+            ("mini_batch", "trot165_b128", "solo12_trot_mini",
+             dict(batch=batch)),
+            ("mini_mpc", "trot165_mpc_w20", "solo12_trot_mini",
+             dict(window=8, episode_ticks=3)),
+            ("mini_stoch", "trot165_b128", "solo12_trot_stoch_mini",
+             dict(batch=batch))):
         wl = json.loads((root / "workloads" / f"{real}.json").read_text())
-        wl.update(config="solo12_trot_mini", warmup=1, sample=4, **extra)
+        wl.update(config=config, warmup=1, sample=4, **extra)
         if name in (compared or {}):
             wl["limits"] = {k: v for k, v in wl["limits"].items()
                             if k in compared[name]}

@@ -4,6 +4,8 @@ import filecmp
 import json
 import time
 
+import pytest
+
 from scpbench_mini import BENCH, mini_root
 from scpbench import harness
 
@@ -41,3 +43,19 @@ def test_new_files_are_found_by_name(tmp_path):
     assert out["metrics"]["answers_per_window.batch"]["value"] == \
         out["attempted"]
     assert list(out)[-1] == "checks"
+
+
+@pytest.mark.parametrize("config,stochastic", [
+    ("solo12_trot_mini", False), ("solo12_trot_stoch_mini", True)])
+def test_stochastic_flag_reaches_the_program(tmp_path, config, stochastic):
+    """A configuration's `stochastic` flag builds the chance-constrained
+    problem; one without the key builds the deterministic one."""
+    root = mini_root(tmp_path, batch=2)
+    cfg = json.loads((root / "configs" / f"{config}.json").read_text())
+    assert cfg.get("stochastic", False) == stochastic
+    wl = json.loads((root / "workloads" / "mini_batch.json").read_text())
+    cell = harness.Cell(name="mini_batch", workload=dict(wl, config=config),
+                        config=cfg, root=root)
+    prob = harness.build_program(cell, "cpu")
+    assert prob.ocp.stochastic is stochastic
+    assert prob.scp.lqr_iters == cfg["scp"]["lqr_iters"]

@@ -9,8 +9,10 @@ the batch cell holds the ones every cell compares, k_gap and prim
 with the polish; the N=18 plan's ADMM stops looser than theirs).  The
 faults a cell here can have: a step that returns its state unchanged,
 half of the batch left out, an answer altered where it is produced, and
-(MPC) an ADMM that stops early with the gains K left right.  (One chip: no
-exchange between chips.)
+(MPC) an ADMM that stops early with the gains K left right.  The
+chance-constrained configuration under the batch cell's traffic
+(`mini_stoch`, compared as the batch cell) can also have its back-offs
+dropped or its gains taken at 2 DARE steps (`readings.CHANCE_FAULTS`).  (One chip: no exchange between chips.)
 """
 import dataclasses
 import time
@@ -69,21 +71,34 @@ def altered(real):
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
     return mini_root(tmp_path_factory.mktemp("faults"), batch=4,
-                     compared={"mini_batch": ("k_gap", "prim")})
+                     compared={"mini_batch": ("k_gap", "prim"),
+                               "mini_stoch": ("k_gap", "prim")})
 
 
-@pytest.mark.parametrize("cell", ["mini_batch", "mini_mpc"])
+@pytest.mark.parametrize("cell", ["mini_batch", "mini_mpc", "mini_stoch"])
 def test_sound_run_is_correct(root, cell):
     out = run(root, cell)
     assert out["correct"], out["checks"]
 
 
+@pytest.mark.parametrize("cell", ["mini_batch", "mini_stoch"])
 @pytest.mark.parametrize("fault", [unchanged, half_left_out, altered])
-def test_batch_fault_is_caught(root, monkeypatch, fault):
+def test_batch_fault_is_caught(root, monkeypatch, fault, cell):
     monkeypatch.setattr(batch_mod, "batched_solve",
                         fault(batch_mod.batched_solve))
-    out = run(root, "mini_batch")
+    out = run(root, cell)
     assert not out["correct"], out["checks"]
+
+
+@pytest.mark.parametrize("fault", sorted(readings.CHANCE_FAULTS))
+def test_chance_fault_is_caught(root, monkeypatch, fault):
+    """The back-offs dropped (caught by prim: the answer leaves the
+    tightened friction rows) or the gains of a 2-step DARE (k_gap)."""
+    monkeypatch.setattr(*readings.chance_fault(fault))
+    out = run(root, "mini_stoch")
+    assert not out["correct"], out["checks"]
+    caught = {"nobackoff": "prim", "dare2": "k_gap"}[fault]
+    assert out["checks"][caught]["value"] > out["checks"][caught]["limit"]
 
 
 @pytest.mark.parametrize("fault", [unchanged, altered])

@@ -9,6 +9,7 @@ so that reading it takes seconds.  `record` hands the per-layer readers
 (`metrics/*.py`) one dict:
 
     mode, batch, n1, V          the cell's shape (n1 knots, V = nx+nu+1)
+    nu, lqr_iters               controls a knot; the DARE's steps
     units, units_total          batches or ticks traced; in the window
     qp                          every lane's (tick's) QP iterations
     counts                      launch counters over the traced units
@@ -79,6 +80,7 @@ class Tracer:
         rec = {"mode": cell.mode, "batch": cell.workload["batch"],
                "n1": prob.X0.shape[0],
                "V": prob.X0.shape[-1] + prob.U0.shape[-1] + 1,
+               "nu": prob.U0.shape[-1], "lqr_iters": prob.scp.lqr_iters,
                "units": self.seen, "units_total": units_total,
                "qp": qp, "counts": self.counts}
         if self.prof is None:
