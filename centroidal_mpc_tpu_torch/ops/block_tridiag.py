@@ -27,7 +27,10 @@ at the top of the CUDA source.  On a CPU tensor each wrapper runs its
 plain PyTorch version (a port of the JAX package's XLA twins
 `_block_tridiag_cholesky` / `_block_tridiag_solve`); on a CUDA tensor it
 launches its kernel or raises.  `launches` counts the wrappers' calls on
-the card (one per launch, the factor's pair once).  When
+the card (one per launch, the factor's pair once), and
+`launches["tridiag_factor_lanes"]` the scenarios (lanes) those factor
+calls factored: B a call, so that a refactor of gathered lanes counts
+only them.  When
 V*V*itemsize is a multiple of 16 bytes (V even) the sweeps copy the
 blocks with TMA, so their wrappers then require Cinv and the coupling
 blocks to start on a 16-byte boundary.  `sweep_cost`, `factor_cost`
@@ -42,7 +45,8 @@ import torch
 
 from centroidal_mpc_tpu_torch.ops import cuda_lib
 
-launches = {"tridiag_factor": 0, "tridiag_fwd": 0, "tridiag_bwd": 0}
+launches = {"tridiag_factor": 0, "tridiag_fwd": 0, "tridiag_bwd": 0,
+            "tridiag_factor_lanes": 0}
 
 
 class TridiagFactor(NamedTuple):
@@ -143,6 +147,7 @@ def factor_batched(diag: torch.Tensor, off: torch.Tensor) -> TridiagFactor:
     cuda_lib.launch("cmpc_tridiag_factor", sfx, diag.device, diag, off,
                     cinv, pfwd, pbwd, *dims)
     launches["tridiag_factor"] += 1
+    launches["tridiag_factor_lanes"] += dims[0]
     return TridiagFactor(Cinv=cinv, Pfwd=pfwd, Pbwd=pbwd)
 
 

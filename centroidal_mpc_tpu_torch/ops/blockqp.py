@@ -623,19 +623,43 @@ def _polish(s: _Scaled, settings: QPSettings, sigma: float, w: WVars,
     for the dual, accumulating dy into (y, y_lo) by TwoSum.  Returns
     (w, z, y, y_lo); the caller keeps the polished iterate only if its
     normalized worst residual improves.
+
+    The CoP rows (wrench6 feet; the JAX package has no such rule) are
+    detected as a primal-dual active set: in the first round from the
+    iterate as the other rows, but with a dual tolerance above the dtype's
+    epsilon; in later rounds a CoP row is active at a bound only if it
+    lies within polish_active_tol of it (or beyond it) and its dual has
+    not the wrong sign for that bound.  Under the other groups' rule a
+    row held at an edge stays held whatever its dual: the SCP's warm
+    start carries the duals of the CoP rows that the last QP bound, those
+    rows held the CoP at the edge of the foot where the optimum has it
+    inside (26 rows in the second QP of talos pace), and the
+    re-linearizing loop alternated between two answers.
     """
     atol = settings.polish_active_tol
     ytol = 1e-12
     dtype, dev = s.sh.dtype, s.sh.device
     factorize, backsolve = _backend(settings)
+    # a row that left its bound keeps a dual of the iterate's round-off
+    # (~1e-10 in float32): taken as active, it pins the CoP to an edge
+    ytol_cop = max(ytol, torch.finfo(dtype).eps)
 
-    def detect(z, y):
+    def detect(z, y, first: bool):
         masks, targets = [], []
-        for lo, hi, zz, yy, ee in zip(s.l, s.u, z, y, s.E):
+        for name, lo, hi, zz, yy, ee in zip(ZGroups._fields, s.l, s.u, z, y,
+                                            s.E):
             # finiteness judged on unscaled bounds: row scaling moves the
             # 1e20 sentinel by O(1) factors
-            low = (((zz - lo) < atol) | (yy < -ytol)) & (lo / ee > -0.5 * INF)
-            high = (((hi - zz) < atol) | (yy > ytol)) & (hi / ee < 0.5 * INF)
+            fin_l, fin_u = lo / ee > -0.5 * INF, hi / ee < 0.5 * INF
+            if name != "cop":
+                low = (((zz - lo) < atol) | (yy < -ytol)) & fin_l
+                high = (((hi - zz) < atol) | (yy > ytol)) & fin_u
+            elif first:
+                low = (((zz - lo) < atol) | (yy < -ytol_cop)) & fin_l
+                high = (((hi - zz) < atol) | (yy > ytol_cop)) & fin_u
+            else:
+                low = ((zz - lo) < atol) & (yy <= ytol_cop) & fin_l
+                high = ((hi - zz) < atol) & (yy >= -ytol_cop) & fin_u
             m = low | high
             masks.append(m)
             targets.append(torch.where(m, torch.where(high, hi, lo),
@@ -652,7 +676,7 @@ def _polish(s: _Scaled, settings: QPSettings, sigma: float, w: WVars,
         beta = settings.polish_rho * ramp
         dsig = (torch.full((), settings.polish_sigma * ramp, dtype=dtype,
                            device=dev) - sigma)
-        mask, b_a = detect(Aw, y_p)
+        mask, b_a = detect(Aw, y_p, rnd == 0)
         rho_p = ZGroups(*(m.to(dtype) * beta for m in mask))
         diag, off = _assemble_blocks(s, rho_p, sigma)
         fac_p = factorize(diag + dsig * eye, off)

@@ -27,9 +27,10 @@ the DARE and builds the QP at each lane's current linearization
 trajectory X_lin, which moves to an accepted solution; the comparison
 trajectory X_cmp (the reference's prev_traj_dict) takes the old X_lin.
 
-`counts` counts the loop's passes and its blocking host reads; the
-loop's spans (`utils.profiling.span`) are `scp.solve`, `scp.linearize`,
-`qp.build`, `scp.accept` and `sync.scp`, around the QP solvers' own.
+`counts` counts the loop's passes, its linearizations (each one DARE)
+and its blocking host reads; the loop's spans (`utils.profiling.span`)
+are `scp.solve`, `scp.linearize`, `qp.build`, `scp.accept` and
+`sync.scp`, around the QP solvers' own.
 """
 from __future__ import annotations
 
@@ -49,9 +50,11 @@ from centroidal_mpc_tpu_torch.solver.ocp import (N_X, OcpConfig, build_qp,
 from centroidal_mpc_tpu_torch.utils.profiling import span
 
 # The SCP loop's counters (read through `utils.profiling.counters`):
-# passes of the loop (each solves one QP on every lane of the batch) and
-# the loop test's blocking host reads (one a pass and one at the end).
-counts = {"scp.iterations": 0, "sync.scp": 0}
+# passes of the loop (each solves one QP on every lane of the batch), the
+# linearizations of the batch (each with its DARE: one a solve when it is
+# frozen, one a pass when it moves) and the loop test's blocking host
+# reads (one a pass and one at the end).
+counts = {"scp.iterations": 0, "scp.linearizations": 0, "sync.scp": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +164,7 @@ def _solve_scp(model: CentroidalModel, schedule: ContactSchedule,
 
     def trajectory_data(X, U):
         with span("scp.linearize"):
+            counts["scp.linearizations"] += 1
             return compute_trajectory_data(model, schedule, X, U,
                                            lqr_iters=settings.lqr_iters,
                                            with_covariance=cfg.stochastic)

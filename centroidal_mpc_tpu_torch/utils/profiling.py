@@ -110,7 +110,8 @@ def span(name: str):
 def counters() -> Dict[str, int]:
     """A snapshot of every counter of the program: the kernel wrappers'
     `launches` (`ops.block_tridiag`, `ops.lqr_kernel`: calls of the solve
-    API) and the solver loops' `counts` (`solver.scp`: SCP passes;
+    API, and the lanes the factor calls factored) and the solver loops'
+    `counts` (`solver.scp`: SCP passes and linearizations;
     `ops.admm`: ADMM segments, iterations and refactor calls, shared by
     the dense and block solvers), with one `sync.*` count a blocking host
     read.  The counters only grow; subtract two snapshots."""

@@ -1415,7 +1415,8 @@ def phase_assoc(card):
     qp = dataclasses.replace(QP, sweep_method="assoc")
     prob, scp = problem(presets.SOLO12_TROT_N50, qp=qp)
     sol, rec = drive("assoc", prob, scp, 32, card, profile=True,
-                     kernels=("tridiag_factor", "dare_lqr"))
+                     kernels=("tridiag_factor", "tridiag_factor_lanes",
+                              "dare_lqr"))
     rec["x_err_inf"], rec["u_err_inf"] = ref_errors(
         sol, os.path.basename(REF_CACHE))
     X0, U0, cfg = scenarios(prob, 32)

@@ -10,7 +10,8 @@ checked here too.  The `cuda` cases hold the replayed loop on the card to
 the eager one: at the trot (V=22) and bolt (V=16) shapes with fixed and
 'cond' rho, the 'assoc' sweep, the block-Thomas factor in float64 with
 'always' rho and talos' wrench contacts, to round-off; one batch of each
-B=128 benchmark cell bit for bit; two problems through one cached graph;
+B=128 benchmark cell, and of talos pace at B=128 (wrench6, re-linearized,
+'always' rho), bit for bit; two problems through one cached graph;
 a 'cond' solve that refactors; a capture while another thread works on
 the card.  They check the counters of both paths, and that a trace shows
 as many sweep kernels as the launch counters count:
@@ -477,7 +478,8 @@ def test_replay_reads_the_refactored_factor(cuda, eager):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["trot165_b128", "bolt_pace_b128"])
+@pytest.mark.parametrize("cell", ["trot165_b128", "bolt_pace_b128",
+                                  "talos_pace_b128"])
 def test_replay_is_bit_equal_at_the_cells_shapes(cuda, eager, cell):
     """One batch of a benchmark cell (its configuration, B=128, its
     perturbed inputs) through `batched_solve`: the replayed loop gives the

@@ -131,7 +131,8 @@ def test_counters_keep_the_launch_dicts(prob):
     assert [id(d) for d in (block_tridiag.launches,
                             lqr_kernel.launches)] == ids
     assert set(block_tridiag.launches) == {"tridiag_factor", "tridiag_fwd",
-                                           "tridiag_bwd"}
+                                           "tridiag_bwd",
+                                           "tridiag_factor_lanes"}
     assert set(lqr_kernel.launches) == {"dare_lqr"}
     for d in launches + (admm.counts,):
         assert {k: snap[k] for k in d} == d
