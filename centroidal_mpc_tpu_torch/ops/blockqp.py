@@ -6,12 +6,13 @@ and its refinement polish, with the 'cholesky'/'pallas' or 'thomas'
 factor and the 'scan' or 'assoc' sweep).  The QP is the
 same OSQP-form problem: decision variables per knot W = (N+1, V) with
 V = nx + nu + 1 (state, control, trust slack; the control slot of knot N
-is a padded dummy), the constraint operator applied as batched einsums,
-and the block-tridiagonal ADMM normal matrix M = P + sigma I +
-A' diag(rho) A factorized by `ops.block_tridiag` (CUDA kernels on the
-card, their plain versions on the CPU) or, with factor_method='thomas',
-by the block-Thomas recursion below (plain PyTorch, as the JAX
-package's is XLA).
+is a padded dummy), the constraint operator A and A' applied by
+`ops.constraint_apply` (a CUDA kernel a product on the card, batched
+einsums on the CPU), and the block-tridiagonal ADMM normal matrix
+M = P + sigma I + A' diag(rho) A factorized by `ops.block_tridiag`
+(CUDA kernels on the card, their plain versions on the CPU) or, with
+factor_method='thomas', by the block-Thomas recursion below (plain
+PyTorch, as the JAX package's is XLA).
 
 Every tensor carries a leading scenario axis B; per-scenario scalars
 (residuals, step sizes, statuses) are (B,) tensors.  The JAX package runs
@@ -44,7 +45,7 @@ from centroidal_mpc_tpu_torch.ops.admm import (QPSettings, STATUS_MAX_ITER,
                                                STATUS_PRIMAL_INFEASIBLE,
                                                STATUS_DUAL_INFEASIBLE,
                                                counts)
-from centroidal_mpc_tpu_torch.ops import block_tridiag
+from centroidal_mpc_tpu_torch.ops import block_tridiag, constraint_apply
 from centroidal_mpc_tpu_torch.ops.block_tridiag import (_matvec,
                                                         factor_batched,
                                                         solve_assoc,
@@ -244,7 +245,7 @@ class _Scaled(NamedTuple):
     c: torch.Tensor        # (B,) cost scaling
 
 
-def _apply_A(s: _Scaled, w: WVars) -> ZGroups:
+def _apply_A_plain(s: _Scaled, w: WVars) -> ZGroups:
     x, u, t = w
     nb, n = s.Ah.shape[0], s.Ah.shape[1]
     C, nuc = s.Gh.shape[2], s.Gh.shape[4]
@@ -262,7 +263,7 @@ def _apply_A(s: _Scaled, w: WVars) -> ZGroups:
     )
 
 
-def _apply_AT(s: _Scaled, z: ZGroups) -> WVars:
+def _apply_AT_plain(s: _Scaled, z: ZGroups) -> WVars:
     nb, n, nx = s.Ah.shape[0], s.Ah.shape[1], s.Ah.shape[2]
     C, nuc = s.Gh.shape[2], s.Gh.shape[4]
     x = torch.zeros((nb, n + 1, nx), dtype=z.dyn.dtype, device=z.dyn.device)
@@ -277,6 +278,26 @@ def _apply_AT(s: _Scaled, z: ZGroups) -> WVars:
     u = u + u_c.reshape(nb, n, C * nuc)
     t = -(s.wh * z.trust).sum(-1) - s.sh * z.slack
     return WVars(x=x, u=u, t=t)
+
+
+def _coefficients(s: _Scaled) -> tuple:
+    return tuple(getattr(s, f) for f in constraint_apply.COEFFICIENTS)
+
+
+def _apply_A(s: _Scaled, w: WVars) -> ZGroups:
+    """z = A w: one `constraint_apply` kernel for CUDA tensors, the plain
+    einsums for CPU tensors."""
+    if s.Ah.device.type == "cpu":
+        return _apply_A_plain(s, w)
+    return ZGroups(*constraint_apply.apply_A(_coefficients(s), *w))
+
+
+def _apply_AT(s: _Scaled, z: ZGroups) -> WVars:
+    """w = A' z: one `constraint_apply_T` kernel for CUDA tensors, the
+    plain einsums for CPU tensors."""
+    if s.Ah.device.type == "cpu":
+        return _apply_AT_plain(s, z)
+    return WVars(*constraint_apply.apply_AT(_coefficients(s), z))
 
 
 def _row_norms(s: _Scaled) -> ZGroups:
@@ -389,7 +410,10 @@ def _ruiz(qp: BlockQP, iters: int) -> _Scaled:
                                   torch.ones_like(gamma_den))
         s = s._replace(Px=s.Px * _bc(gamma, s.Px), Pu=s.Pu * _bc(gamma, s.Pu),
                        q=_scale(gamma, s.q), c=s.c * gamma)
-    return s
+    # the constraint kernels take contiguous blocks (without scaling
+    # iterations Th, wh are still broadcast views)
+    return s._replace(**{f: getattr(s, f).contiguous()
+                         for f in constraint_apply.COEFFICIENTS})
 
 
 def _rho_groups(settings: QPSettings, rho: torch.Tensor,
@@ -897,6 +921,10 @@ class _EagerSegments:
         return self.state
 
 
+# The launch counters to which a replayed segment adds its capture's.
+_COUNTED = (block_tridiag.launches, constraint_apply.launches)
+
+
 class _SegmentGraph:
     """One segment captured as a CUDA graph and replayed at every segment
     of every solve of the same shapes and settings.
@@ -905,18 +933,18 @@ class _SegmentGraph:
     the step sizes, the factor and the loop state.  `load` copies a
     solve's inputs into them, `set_factor` a refactored factor, and
     `result` copies the final state out.  The kernel wrappers' launch
-    counters grow once, during capture; each replay adds that growth, so
-    they count the solve API's calls as the eager loop does.  While a
-    capture runs, other threads may work on the card, but not draw from
-    its default random generator (PyTorch ties it to every capture)."""
+    counters (`_COUNTED`) grow once, during capture; each replay adds
+    that growth, so they count the solve API's calls as the eager loop
+    does.  While a capture runs, other threads may work on the card, but
+    not draw from its default random generator (PyTorch ties it to every
+    capture)."""
 
     def __init__(self, s, settings, backsolve, rho_g, fac, st):
         self.device = st.frozen.device
         self.s, self.rho_g, self.fac, self.state = _tree.map_tensors(
             torch.empty_like, (s, rho_g, fac, st))
         self.load(s, rho_g, fac, st)
-        launches = block_tridiag.launches
-        before = dict(launches)
+        before = [dict(d) for d in _COUNTED]
 
         def body():
             return _segment(self.s, settings, backsolve, self.rho_g,
@@ -931,7 +959,7 @@ class _SegmentGraph:
                 with torch.cuda.stream(side):
                     body()
                 torch.cuda.current_stream().wait_stream(side)
-                warm = dict(launches)
+                warm = [dict(d) for d in _COUNTED]
                 # thread-local: CUDA then forbids the potentially unsafe
                 # calls (cudaMalloc) of this thread alone, not those of
                 # other threads (say, the server's control loop)
@@ -939,9 +967,11 @@ class _SegmentGraph:
                 with torch.cuda.graph(self.graph,
                                       capture_error_mode="thread_local"):
                     _copy_leaves(self.state, body())
-            self.launches = {k: launches[k] - warm[k] for k in launches}
+            self.launches = [{k: d[k] - w[k] for k in d}
+                             for d, w in zip(_COUNTED, warm)]
         finally:
-            launches.update(before)     # neither ran a solve's segment
+            for d, b in zip(_COUNTED, before):
+                d.update(b)             # neither ran a solve's segment
         counts["admm.graph_captures"] += 1
 
     def load(self, s, rho_g, fac, st) -> None:
@@ -951,8 +981,9 @@ class _SegmentGraph:
     def run(self) -> None:
         with torch.cuda.device(self.device):
             self.graph.replay()
-        for k, n in self.launches.items():
-            block_tridiag.launches[k] += n
+        for d, grown in zip(_COUNTED, self.launches):
+            for k, n in grown.items():
+                d[k] += n
         counts["admm.graph_replays"] += 1
 
     def set_factor(self, rho_g, fac) -> None:

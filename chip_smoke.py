@@ -22,6 +22,9 @@ Phases (the first four raise on failure, so the script exits non-zero):
      solo12_trot_n50 (nu 12) and bolt_pace (nu 6) over 128 scenarios at 2
      steps (the main path's) and 30 (the stochastic stage's), of
      talos_pace (wrench6) over 32 at 2 and of solo12_trot over 8 at 30;
+     the constraint operator's two kernels (A, A') at the main path's
+     shape, the benchmark cells' (solo12 B=128 and 1024, bolt, talos) and
+     the MPC tick's, each also on the solve's strided views;
      CUDA-event times of kernel and plain version, warm and with L2
      flushed, beside the bound computed from the bytes and operations of
      the launch;
@@ -101,8 +104,9 @@ Phases (the first four raise on failure, so the script exits non-zero):
                          launched in each worker.
      Each prints its launches, CUDA-event wall time, n_success and status
      counts; each requires the kernels its path runs to launch and the
-     others not to (the dense path and 'thomas' launch only dare_lqr; the
-     pipeline's SCP stages all four, the DARE at 2 and 30 steps, stage
+     others not to (the dense path launches only dare_lqr, 'thomas' also
+     the constraint kernels; the
+     pipeline's SCP stages all six, the DARE at 2 and 30 steps, stage
      4b's gains one DARE, its other stages, the plant and the bolt DDP
      none);
      every path runs even when an earlier one fails its gate, and the
@@ -143,6 +147,8 @@ from centroidal_mpc_tpu_torch.models import whole_body_ddp as wbd
 from centroidal_mpc_tpu_torch.models.centroidal import (
     compute_trajectory_data, linearize_step, rollout)
 from centroidal_mpc_tpu_torch.ops import block_tridiag as bt
+from centroidal_mpc_tpu_torch.ops import blockqp as tbq
+from centroidal_mpc_tpu_torch.ops import constraint_apply as ca
 from centroidal_mpc_tpu_torch.ops import cuda_lib
 from centroidal_mpc_tpu_torch.ops import lqr_kernel
 from centroidal_mpc_tpu_torch.ops.admm import QPSettings, solve_qp
@@ -223,6 +229,10 @@ REPLACES = {
     "tridiag_fwd": "centroidal_mpc_tpu/ops/pallas_blockqp.py:280",
     "tridiag_bwd": "centroidal_mpc_tpu/ops/pallas_blockqp.py:299",
     "dare_lqr": "centroidal_mpc_tpu/ops/pallas_lqr.py:114",
+    "constraint_apply": "none: added for A w, the JAX package's einsums "
+                        "(centroidal_mpc_tpu/ops/blockqp.py _apply_A)",
+    "constraint_apply_T": "none: added for A' z, the JAX package's einsums "
+                          "(centroidal_mpc_tpu/ops/blockqp.py _apply_AT)",
 }
 LIBRARY_NOTE = {
     "tridiag_factor": "none: no single PyTorch call writes C^-1, Pfwd and "
@@ -234,12 +244,18 @@ LIBRARY_NOTE = {
                    "sweep over a pre-inverted factor",
     "dare_lqr": "none: no single PyTorch call computes truncated-DARE LQR "
                 "gains",
+    "constraint_apply": "none: the plain version's einsums are cuBLAS "
+                        "batched gemv and elementwise launches",
+    "constraint_apply_T": "none: the plain version's einsums are cuBLAS "
+                          "batched gemv and elementwise launches",
 }
 SOURCES = {
     "tridiag_factor": "centroidal_mpc_tpu_torch/csrc/block_tridiag.cu",
     "tridiag_fwd": "centroidal_mpc_tpu_torch/csrc/block_tridiag.cu",
     "tridiag_bwd": "centroidal_mpc_tpu_torch/csrc/block_tridiag.cu",
     "dare_lqr": "centroidal_mpc_tpu_torch/csrc/dare_lqr.cu",
+    "constraint_apply": "centroidal_mpc_tpu_torch/csrc/constraint_apply.cu",
+    "constraint_apply_T": "centroidal_mpc_tpu_torch/csrc/constraint_apply.cu",
 }
 # device kernel names of each row: the factor is two launches a call
 DEVICE_KERNELS = {
@@ -248,15 +264,18 @@ DEVICE_KERNELS = {
     "tridiag_fwd": ("tridiag_fwd_kernel",),
     "tridiag_bwd": ("tridiag_bwd_kernel",),
     "dare_lqr": ("dare_lqr_kernel",),
+    "constraint_apply": ("constraint_apply_kernel",),
+    "constraint_apply_T": ("constraint_apply_T_kernel",),
 }
+CONSTRAINT = ("constraint_apply", "constraint_apply_T")
 
 
 def launch_counts():
-    return {**bt.launches, **lqr_kernel.launches}
+    return {**bt.launches, **lqr_kernel.launches, **ca.launches}
 
 
 def reset_counts():
-    for d in (bt.launches, lqr_kernel.launches):
+    for d in (bt.launches, lqr_kernel.launches, ca.launches):
         for k in d:
             d[k] = 0
 
@@ -484,6 +503,8 @@ def phase_kernels():
                           bt.sweep_cost(b, n + 1, v)))
 
     results["dare_lqr"], mpc_times["dare_lqr"] = phase_dare()
+    for name, (main, mpc) in phase_constraint_apply().items():
+        results[name], mpc_times[name] = main, mpc
     for name, r in results.items():
         print(f"# time {name}: kernel {r['ms']:.4f} ms warm, "
               f"{r['cold_ms']:.4f} ms cold, plain {r['plain_ms']:.4f} ms, "
@@ -556,6 +577,88 @@ def phase_dare():
     return dict(max_abs_err=max_abs, **runs[DARE_ITERS[0]],
                 **{k + tag: r[k] for k in ("ms", "cold_ms", "plain_ms",
                                            "bound_ms")}), window
+
+
+# the constraint operator's shapes (robot, B, N): the main path's, the
+# benchmark cells' (trot165_b128, trot165_b1024, bolt_pace_b128,
+# talos_pace_b128) and the MPC tick's window; all but talos's are timed
+CONSTRAINT_LAYOUTS = {"solo12": (4, 3, False), "bolt": (2, 3, False),
+                      "talos": (2, 6, True)}   # (C, nuc, live CoP rows)
+CONSTRAINT_SHAPES = (("solo12", BATCH, 50), ("solo12", 128, 165),
+                     ("solo12", 1024, 165), ("bolt", 128, 122),
+                     ("talos", 128, 165), ("solo12", 1, MPC_WINDOW))
+CONSTRAINT_UNTIMED = (("talos", 128, 165),)
+
+
+def constraint_problem(robot, b, n, seed=3):
+    """Random coefficient blocks of a robot's shapes on the card in f32
+    (zero CoP coefficients for point feet, as build_block_qp makes them),
+    w as the strided views of a packed array (as the solve returns it),
+    and a z."""
+    C, nuc, live = CONSTRAINT_LAYOUTS[robot]
+    nu = C * nuc
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn((b,) + shape, generator=g).cuda()
+    s = tbq._Scaled(
+        Px=None, Pu=None, q=None, d0=rnd(9), Ah=rnd(n, 9, 9),
+        Bh=rnd(n, 9, nu), Ih=rnd(n, 9), dN=rnd(9), Gh=rnd(n, C, 5, nuc),
+        coph=(rnd(n, C, 2) if live
+              else torch.zeros(b, n, C, 2, device="cuda")),
+        Th=rnd(n + 1, 8, 3), wh=rnd(n + 1, 8), sh=rnd(n + 1), l=None,
+        u=None, D=None, E=None, c=None)
+    w = tbq._unpack(rnd(n + 1, 9 + nu + 1), 9, nu)
+    z = tbq.ZGroups(rnd(9), rnd(n, 9), rnd(9), rnd(n, C, 2), rnd(n, C, 5),
+                    rnd(n + 1, 8), rnd(n + 1))
+    return s, w, z
+
+
+def phase_constraint_apply():
+    """constraint_apply (A w) and constraint_apply_T (A' z) against their
+    plain versions at CONSTRAINT_SHAPES, A on the strided and on
+    contiguous w; timed at all but CONSTRAINT_UNTIMED.  Returns
+    {kernel: (the main path's numbers, the MPC tick's)}."""
+    main, mpc = {}, {}
+    for robot, b, n in CONSTRAINT_SHAPES:
+        s, w, z = constraint_problem(robot, b, n)
+        coef = tbq._coefficients(s)
+        w_dense = tbq.WVars(*(a.contiguous() for a in w))
+        a_err = max(rel_err(x, y) for ww in (w, w_dense) for x, y in zip(
+            tbq._apply_A(s, ww), tbq._apply_A_plain(s, ww)))
+        a_abs = max(float((x - y).abs().max()) for x, y in zip(
+            tbq._apply_A(s, w), tbq._apply_A_plain(s, w)))
+        t_pairs = list(zip(tbq._apply_AT(s, z), tbq._apply_AT_plain(s, z)))
+        t_err = max(rel_err(x, y) for x, y in t_pairs)
+        t_abs = max(float((x - y).abs().max()) for x, y in t_pairs)
+        torch.cuda.synchronize()
+        print(f"# constraint_apply {robot} B={b} N={n}: A rel {a_err:.2e}, "
+              f"A' rel {t_err:.2e} (max over groups, relative to the "
+              "plain version's max)")
+        check(a_err < KERNEL_RTOL, f"constraint_apply rel err {a_err}")
+        check(t_err < KERNEL_RTOL, f"constraint_apply_T rel err {t_err}")
+        if (robot, b, n) in CONSTRAINT_UNTIMED:
+            continue
+        C, nuc, _ = CONSTRAINT_LAYOUTS[robot]
+        cost = ca.constraint_apply_cost(b, n, 9, C * nuc, C, nuc)
+        runs = {"constraint_apply": (lambda: ca.apply_A(coef, *w),
+                                     lambda: tbq._apply_A_plain(s, w), a_abs),
+                "constraint_apply_T": (lambda: ca.apply_AT(coef, z),
+                                       lambda: tbq._apply_AT_plain(s, z),
+                                       t_abs)}
+        for name, (fn, plain, err) in runs.items():
+            r = timings(fn, plain, cost)
+            print(f"# time {name} {robot} B={b} N={n}: kernel "
+                  f"{r['ms']:.4f} ms warm, {r['cold_ms']:.4f} ms cold, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}, {cost.bytes} bytes); share of bound "
+                  f"{r['bound_ms'] / r['cold_ms']:.1%} cold, "
+                  f"{r['bound_ms'] / r['ms']:.1%} warm")
+            if (b, n) == (BATCH, 50):
+                main[name] = dict(max_abs_err=err, **r)
+            if b == 1:
+                mpc[name] = r
+    return {name: (main[name], mpc[name]) for name in CONSTRAINT}
 
 
 def scenarios(prob, batch=BATCH):
@@ -1416,7 +1519,7 @@ def phase_assoc(card):
     prob, scp = problem(presets.SOLO12_TROT_N50, qp=qp)
     sol, rec = drive("assoc", prob, scp, 32, card, profile=True,
                      kernels=("tridiag_factor", "tridiag_factor_lanes",
-                              "dare_lqr"))
+                              "dare_lqr") + CONSTRAINT)
     rec["x_err_inf"], rec["u_err_inf"] = ref_errors(
         sol, os.path.basename(REF_CACHE))
     X0, U0, cfg = scenarios(prob, 32)
@@ -1447,7 +1550,8 @@ def phase_thomas(card):
     (tests/test_sweep_backends.py's settings), B=8: in f64 gated against
     a 'cholesky' run of the same batch; in f32 (whose convergence the JAX
     package documents as broken) success and u_err are data.  The Thomas
-    factor is plain PyTorch: only the DARE launches a kernel."""
+    factor is plain PyTorch: only the DARE and the constraint operator
+    launch kernels."""
     qp = QPSettings(eps_abs=1e-5, eps_rel=1e-5, max_iter=4000,
                     adaptive_rho=True, adaptive_rho_mode="always",
                     factor_method="thomas")
@@ -1456,7 +1560,7 @@ def phase_thomas(card):
         tag = "f64" if dtype == torch.float64 else "f32"
         prob, scp = problem(presets.SOLO12_TROT_N50, qp=qp, dtype=dtype)
         sol, rec = drive(f"thomas/{tag}", prob, scp, 8, card,
-                         kernels=DARE_ONLY)
+                         kernels=DARE_ONLY + CONSTRAINT)
         rec["x_err_inf"], rec["u_err_inf"] = ref_errors(
             sol, os.path.basename(REF_CACHE))
         print(f"# thomas/{tag}: scenario 0 x_err_inf {rec['x_err_inf']:.3e},"

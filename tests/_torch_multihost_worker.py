@@ -39,6 +39,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from centroidal_mpc_tpu_torch import _tree  # noqa: E402
 from centroidal_mpc_tpu_torch.ops import block_tridiag as bt  # noqa: E402
 from centroidal_mpc_tpu_torch.ops import lqr_kernel  # noqa: E402
+from centroidal_mpc_tpu_torch.ops import constraint_apply as ca  # noqa: E402
 from centroidal_mpc_tpu_torch.parallel import multihost  # noqa: E402
 from centroidal_mpc_tpu_torch.parallel.batch import (  # noqa: E402
     scenario_mesh)
@@ -83,13 +84,13 @@ def run(args):
     else:
         sharded = multihost.shard_global_batch(mesh, batch)
 
-    for counts in (bt.launches, lqr_kernel.launches):
+    for counts in (bt.launches, lqr_kernel.launches, ca.launches):
         for k in counts:
             counts[k] = 0
     sol, stats = solver(*sharded)
     if device == "cuda":
         torch.cuda.synchronize()
-    launches = {**bt.launches, **lqr_kernel.launches}
+    launches = {**bt.launches, **lqr_kernel.launches, **ca.launches}
     result = dict(
         rank=args.rank, world=dist.get_world_size(),
         n_success=int(stats["n_success"]),

@@ -405,3 +405,151 @@ def test_dare_function_jacobian_on_card_matches_cpu(cuda):
     assert lqr_kernel.launches["dare_lqr"] > count
     for g, r in zip(card, jac("cpu")):
         assert _rel(g.cpu(), r) < 1e-9
+
+
+# ---------------------------------------------------------------------------
+# the constraint operator A, A' (ops.constraint_apply)
+# ---------------------------------------------------------------------------
+
+# (robot, B, N): the four cells' shapes (trot165_b1024, trot165_b128,
+# bolt_pace_b128, talos_pace_b128), B=1 (the MPC tick's window, one
+# scenario of each robot), and small horizons whose rows end a block's
+# tile ragged (32 rows a block in f32, 16 in f64; B (N+1) rows)
+APPLY_SHAPES = [("solo12", 1024, 165), ("solo12", 128, 165),
+                ("bolt", 128, 122), ("talos", 128, 165), ("solo12", 1, 20),
+                ("bolt", 1, 122), ("talos", 1, 165), ("solo12", 3, 7),
+                ("talos", 5, 30), ("bolt", 7, 1)]
+
+
+def _abs_operator(s):
+    """s with |coefficients| and the subtracted ones (Ih, wh, sh) negated,
+    so that the plain versions compute |A| |w| and |A'| |z|: the sums of
+    the terms' magnitudes."""
+    from centroidal_mpc_tpu_torch.ops import constraint_apply as ca
+    neg = ("Ih", "wh", "sh")
+    return s._replace(**{f: (-1.0 if f in neg else 1.0) * getattr(s, f).abs()
+                         for f in ca.COEFFICIENTS})
+
+
+def _within_rounding(got, want, magnitude, dtype):
+    """Each output of a sum of at most 22 terms (dyn: 9 + nu + 1) computed
+    in two orders (the kernel's fixed fused multiply-add chain, cuBLAS's
+    and PyTorch's): each within gamma_22 = 22 eps / (1 - 22 eps) of the
+    sum of its terms' magnitudes, so the two within 2 gamma_24 of it."""
+    eps = torch.finfo(dtype).eps
+    for g, w, m in zip(got, want, magnitude):
+        assert g.shape == w.shape and g.is_contiguous()
+        assert bool(((g - w).abs() <= 2 * 24 * eps * m).all()), \
+            float(((g - w).abs() / m.clamp(min=1e-300)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("robot,b,n", APPLY_SHAPES)
+def test_constraint_kernels_match_plain(cuda, dtype, robot, b, n):
+    """constraint_apply and constraint_apply_T against the plain versions
+    on the card, w also as the strided views of the solve's packed output;
+    one launch each a product."""
+    from centroidal_mpc_tpu_torch.ops import blockqp as tbq
+    from centroidal_mpc_tpu_torch.ops import constraint_apply as ca
+    from constraint_apply_cases import random_scaled, random_w, random_z
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s = random_scaled(robot, b, n, dtype, cuda)
+    sa = _abs_operator(s)
+    z = random_z(s)
+    for packed in (False, True):
+        w = random_w(s, packed=packed)
+        counts = dict(ca.launches)
+        got = tbq._apply_A(s, w)
+        assert ca.launches["constraint_apply"] == \
+            counts["constraint_apply"] + 1
+        _within_rounding(got, tbq._apply_A_plain(s, w),
+                         tbq._apply_A_plain(sa, tbq.WVars(
+                             *(a.abs() for a in w))), dtype)
+    got = tbq._apply_AT(s, z)
+    torch.cuda.synchronize()
+    assert ca.launches["constraint_apply_T"] == \
+        counts["constraint_apply_T"] + 1
+    _within_rounding(got, tbq._apply_AT_plain(s, z),
+                     tbq._apply_AT_plain(sa, tbq.ZGroups(
+                         *(a.abs() for a in z))), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_constraint_kernels_take_unaligned_blocks(cuda, dtype):
+    """Coefficient blocks that start one element past a 16-B boundary are
+    copied with element copies at their ends: the products still match."""
+    from centroidal_mpc_tpu_torch.ops import blockqp as tbq
+    from centroidal_mpc_tpu_torch.ops import constraint_apply as ca
+    from constraint_apply_cases import random_scaled, random_w, random_z
+    s = random_scaled("talos", 3, 9, dtype, cuda)
+    odd = s._replace(**{f: _one_element_in(getattr(s, f))
+                        for f in ca.COEFFICIENTS})
+    w, z = random_w(s, packed=True), random_z(s)
+    for a, b in zip(tbq._apply_A(odd, w), tbq._apply_A(s, w)):
+        assert torch.equal(a, b)
+    for a, b in zip(tbq._apply_AT(odd, z), tbq._apply_AT(s, z)):
+        assert torch.equal(a, b)
+
+
+def test_constraint_wrappers_raise_on_what_they_do_not_take(cuda):
+    """A wrong shape, dtype or device, a non-contiguous coefficient block
+    or a contact layout with no kernel raises before any launch."""
+    from centroidal_mpc_tpu_torch.ops import blockqp as tbq
+    from centroidal_mpc_tpu_torch.ops import constraint_apply as ca
+    from constraint_apply_cases import random_scaled, random_w, random_z
+    s = random_scaled("solo12", 2, 6, torch.float32, cuda)
+    w, z = random_w(s), random_z(s)
+    counts = dict(ca.launches)
+    bad_scaled = [
+        s._replace(Ih=s.Ih[:, :-1]),                      # wrong shape
+        s._replace(Th=s.Th.mT.contiguous().mT),           # not contiguous
+        s._replace(wh=s.wh.double()),                     # mixed dtype
+        s._replace(sh=s.sh.cpu()),                        # mixed device
+        s._replace(Gh=s.Gh.reshape(2, 6, 3, 5, 4),        # no kernel
+                   Bh=s.Bh, coph=s.coph[:, :, :3]),
+    ]
+    for bad in bad_scaled:
+        with pytest.raises(ValueError):
+            tbq._apply_A(bad, w)
+        with pytest.raises(ValueError):
+            tbq._apply_AT(bad, z)
+    half = s._replace(**{f: getattr(s, f).half() for f in ca.COEFFICIENTS})
+    with pytest.raises(TypeError):
+        tbq._apply_A(half, tbq.WVars(*(a.half() for a in w)))
+    with pytest.raises(ValueError):                       # w of another dtype
+        tbq._apply_A(s, tbq.WVars(w.x.double(), w.u, w.t))
+    with pytest.raises(ValueError):                       # z of another shape
+        tbq._apply_AT(s, z._replace(fric=z.fric[:, :-1]))
+    assert ca.launches == counts
+
+
+@pytest.mark.parametrize("certificates,per_segment", [(True, 12),
+                                                      (False, 11)])
+def test_replayed_segment_counts_its_products(cuda, certificates,
+                                              per_segment):
+    """A replayed segment counts the products it captured: 10 ADMM
+    iterations of one A' and one A, the residuals' A and A', and with the
+    infeasibility certificates their A' and A; the loop's set-up adds one
+    A."""
+    from centroidal_mpc_tpu_torch.ops import admm
+    from centroidal_mpc_tpu_torch.ops import blockqp as tbq
+    from centroidal_mpc_tpu_torch.ops import constraint_apply as ca
+    from centroidal_mpc_tpu_torch.config import presets
+    from centroidal_mpc_tpu_torch.ops.admm import QPSettings
+    from test_torch_admm_graph import _block_qp
+    settings = QPSettings(eps_abs=1e-5, eps_rel=1e-5, max_iter=400,
+                          adaptive_rho=False, check_interval=10,
+                          polish=False, check_infeasibility=certificates)
+    qp, w0 = _block_qp(presets.SOLO12_TROT_MINI, 4, cuda, torch.float32)
+    before = {**ca.launches, **admm.counts}
+    tbq.solve_block_qp(qp, settings, w0=w0)
+    torch.cuda.synchronize()
+    d = {k: v - before[k] for k, v in {**ca.launches, **admm.counts}.items()}
+    segments = d["admm.segments"]
+    assert segments == d["admm.graph_replays"] > 0
+    assert d["constraint_apply"] == 1 + per_segment * segments
+    assert d["constraint_apply_T"] == per_segment * segments
+    graph = next(g for key, g in tbq._SEGMENT_GRAPHS.items()
+                 if key[1] == settings)
+    assert graph.launches[1] == {"constraint_apply": per_segment,
+                                 "constraint_apply_T": per_segment}
