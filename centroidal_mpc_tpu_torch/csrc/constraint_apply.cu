@@ -10,7 +10,8 @@
 // of the device's busy time.  These two kernels were added to compute each
 // product whole, reading every coefficient once.
 //
-// Per scenario, with w = (x, u, t) and z grouped as ops/blockqp.ZGroups:
+// Per scenario, with w = (x, u, t) and z grouped as ops/blockqp.ZGroups
+// (init, dyn, final, cop, fric, trust, slack):
 //   A w:   init   = d0 * x_0                 final  = dN * x_N
 //          dyn_k  = Ah_k x_k + Bh_k u_k - Ih_k * x_{k+1}           (k < N)
 //          cop_kc = coph_kc * u_kc[0:2]      fric_kc = Gh_kc u_kc   (k < N)
@@ -38,21 +39,22 @@
 // Ah, Bh, Ih, Gh or coph, so the runs of those skip it, and row r's entry
 // is r - r / (N+1).  The block copies each run into shared memory with
 // 16-byte cp.async copies (element copies at the run's ragged ends), and
-// the rows' vectors element by element: x, u and t may be strided views
-// (the solve's packed output), so their lane, knot and entry strides are
-// passed and no copy is made.  The one neighbour a row needs across the
-// tile's edge (x_{k+1} for A; dyn_{k-1} and Ih_{k-1} for A') is copied
-// from device memory with the tile.  After one wait, the threads compute
-// each output group in a loop over (row, entry): one thread an output,
-// written once, by its owner, in memory order, so a warp's stores are
-// coalesced.  No atomics.  Every sum is an fp32 (fp64 for fp64) fused
-// multiply-add chain in a fixed order over its index.  A block uses under
-// 48 KB of shared memory, so four or five share an SM and one's copies
-// overlap another's arithmetic.  The block sizes are template parameters:
-// nx = 9 and the contact layout (C contacts, nuc entries each): solo12
-// (4, 3), bolt (2, 3) and the talos wrench6 feet (2, 6).  The point-foot
-// robots' cop rows are inert zeros, computed as the plain version computes
-// them, so that the group layout does not depend on the robot.
+// the rows' vectors element by element: w = (x, u, t) as strided views of
+// the solve's packed W (A' also zeroes its dummy control slot of knot N),
+// z a (B, m) buffer of the groups above (`ZOffsets`) with a lane stride.
+// The one neighbour a row needs across the tile's edge (x_{k+1} for A;
+// dyn_{k-1} and Ih_{k-1} for A') is copied from device memory with the
+// tile.  After one wait, the threads compute each output group in a loop
+// over (row, entry): one thread an output, written once, by its owner, in
+// entry order, so a warp's stores are coalesced.  No atomics.  Every sum is
+// an fp32 (fp64 for fp64) fused multiply-add chain in a fixed order over
+// its index.  A block uses under 48 KB of shared memory, so four or five
+// share an SM and one's copies overlap another's arithmetic.  The block
+// sizes are template parameters: nx = 9 and the contact layout (C
+// contacts, nuc entries each): solo12 (4, 3), bolt (2, 3) and the talos
+// wrench6 feet (2, 6).  The point-foot robots' cop rows are inert zeros,
+// computed as the plain version computes them, so that the group layout
+// does not depend on the robot.
 
 #include <cuda_runtime.h>
 
@@ -154,14 +156,32 @@ struct Coef {
   const T *d0, *Ah, *Bh, *Ih, *dN, *Gh, *coph, *Th, *wh, *sh;
 };
 
-template <typename T>
-struct Groups {  // ops/blockqp.ZGroups
-  T *init, *dyn, *fin, *cop, *fric, *trust, *slack;
+// Where each group starts in a lane's row of z (ops/blockqp._zshapes):
+// init at 0, then dyn, final, cop, fric, trust, slack.
+template <int C>
+struct ZOffsets {
+  long long dyn = kNX, fin, cop, fric, trust, slack;
+  __device__ explicit ZOffsets(long long N)
+      : fin(kNX + N * kNX), cop(fin + kNX), fric(cop + N * 2 * C),
+        trust(fric + N * 5 * C), slack(trust + (N + 1) * kTrust) {}
 };
 
-struct Strides {  // of x, u (lane, knot, entry) and t (lane, knot)
-  long long xb, xk, xi, ub, uk, ui, tb, tk;
+struct Strides {  // of x, u (lane, knot, entry), t (lane, knot), z (lane)
+  long long xb, xk, xi, ub, uk, ui, tb, tk, zb;
 };
+
+// Copy entries [0, width) of group `off` of n rows of z into dst: row j is
+// row rows[j] of the tile's table (j itself without `rows`).
+template <typename T>
+__device__ __forceinline__ void stage_z(T* dst, const T* z, long long zb,
+                                        long long off, int width, int n,
+                                        const int* rows, const int* rb,
+                                        const int* rk) {
+  for (int e = threadIdx.x; e < n * width; e += blockDim.x) {
+    const int lr = rows ? rows[e / width] : e / width;
+    cp_async_elem(dst + e, z + rb[lr] * zb + off + rk[lr] * width + e % width);
+  }
+}
 
 // The rows of one block: row lr = 0..nr-1 is (scenario rb[lr], knot
 // rk[lr]); entry j = 0..nc-1 of the coefficient runs is row jrow[j].  Row
@@ -197,14 +217,19 @@ template <typename T, int C, int NUC>
 __global__ void __launch_bounds__(kThreads, 4)
     constraint_apply_kernel(Coef<T> cf, const T* __restrict__ x,
                             const T* __restrict__ u,
-                            const T* __restrict__ t, Strides sd,
-                            Groups<T> z, int B, int N) {
+                            const T* __restrict__ t, T* __restrict__ z,
+                            Strides sd, int B, int N) {
   using S = Shape<T, C, NUC>;
   constexpr int R = S::R, NU = S::NU, COP = S::COP, FR = S::FR;
+  const ZOffsets<C> zo(N);
   __shared__ __align__(16) char smem[S::kApply];
   __shared__ int rk[R + 1], rb[R + 1], jrow[R];
   const Tile tl = tile_rows(R, B, N, rk, rb, jrow);
   __syncthreads();
+  // entry q of row lr's group at `off`, `width` entries a knot
+  auto zat = [&](long long off, int width, int lr, int q) -> T& {
+    return z[rb[lr] * sd.zb + off + rk[lr] * width + q];
+  };
   const long long S1 = static_cast<long long>(B) * (N + 1);
   const long long ia = tl.ia, r0 = tl.r0;
   const int nr = tl.nr, nc = tl.nc;
@@ -259,55 +284,59 @@ __global__ void __launch_bounds__(kThreads, 4)
     T accu = T(0);
 #pragma unroll
     for (int m = 0; m < NU; ++m) accu = fma(bm[m], uv[m], accu);
-    z.dyn[ia * kNX + o] = (acc + accu) - sIh[o] * xv[kNX + i];
+    zat(zo.dyn, kNX, lr, i) = (acc + accu) - sIh[o] * xv[kNX + i];
   }
   // cop = coph * u_c[0:2]
   for (int o = threadIdx.x; o < nc * COP; o += blockDim.x) {
-    const int j = o / COP, q = o - j * COP;
-    z.cop[ia * COP + o] = scoph[o] * su[j * NU + (q >> 1) * NUC + (q & 1)];
+    const int j = o / COP, q = o - j * COP, lr = jrow[j];
+    zat(zo.cop, COP, lr, q) =
+        scoph[o] * su[j * NU + (q >> 1) * NUC + (q & 1)];
   }
   // fric = Gh u_c
   for (int o = threadIdx.x; o < nc * FR; o += blockDim.x) {
-    const int j = o / FR, q = o - j * FR;
+    const int j = o / FR, q = o - j * FR, lr = jrow[j];
     const T* g = sGh + o * NUC;
     const T* uv = su + j * NU + (q / 5) * NUC;
     T acc = T(0);
 #pragma unroll
     for (int m = 0; m < NUC; ++m) acc = fma(g[m], uv[m], acc);
-    z.fric[ia * FR + o] = acc;
+    zat(zo.fric, FR, lr, q) = acc;
   }
   // trust = Th x[6:9] - wh * t
   for (int o = threadIdx.x; o < nr * kTrust; o += blockDim.x) {
-    const int lr = o / kTrust;
+    const int lr = o / kTrust, q = o - lr * kTrust;
     const T* th = sTh + o * 3;
     const T* xv = sx + lr * kNX + kAng;
     T acc = T(0);
 #pragma unroll
     for (int m = 0; m < 3; ++m) acc = fma(th[m], xv[m], acc);
-    z.trust[r0 * kTrust + o] = acc - swh[o] * st[lr];
+    zat(zo.trust, kTrust, lr, q) = acc - swh[o] * st[lr];
   }
   // slack = -sh * t
   for (int lr = threadIdx.x; lr < nr; lr += blockDim.x)
-    z.slack[r0 + lr] = -ssh[lr] * st[lr];
+    zat(zo.slack, 1, lr, 0) = -ssh[lr] * st[lr];
   // init = d0 * x_0, final = dN * x_N
   for (int o = threadIdx.x; o < nr * kNX; o += blockDim.x) {
     const int lr = o / kNX, i = o - lr * kNX, k = rk[lr];
     const long long bi = static_cast<long long>(rb[lr]) * kNX + i;
-    if (k == 0) z.init[bi] = cf.d0[bi] * sx[o];
-    if (k == N) z.fin[bi] = cf.dN[bi] * sx[o];
+    T* zl = z + rb[lr] * sd.zb + i;
+    if (k == 0) zl[0] = cf.d0[bi] * sx[o];
+    if (k == N) zl[zo.fin] = cf.dN[bi] * sx[o];
   }
 }
 
 template <typename T, int C, int NUC>
 __global__ void __launch_bounds__(kThreads, 4)
-    constraint_apply_T_kernel(Coef<T> cf, Groups<const T> z, T* __restrict__ x,
-                              T* __restrict__ u, T* __restrict__ t, int B,
-                              int N) {
+    constraint_apply_T_kernel(Coef<T> cf, const T* __restrict__ z,
+                              T* __restrict__ x, T* __restrict__ u,
+                              T* __restrict__ t, Strides sd, int B, int N) {
   using S = Shape<T, C, NUC>;
   constexpr int R = S::R, NU = S::NU, COP = S::COP, FR = S::FR;
+  const ZOffsets<C> zo(N);
   __shared__ __align__(16) char smem[S::kApplyT];
   __shared__ int rk[R + 1], rb[R + 1], jrow[R];
   const Tile tl = tile_rows(R, B, N, rk, rb, jrow);
+  __syncthreads();  // z's copies below read the row tables
   const long long ia = tl.ia, r0 = tl.r0;
   const int nr = tl.nr, nc = tl.nc;
   // Ih and dyn from the entry before the tile's first (knot k-1 of x_k)
@@ -332,15 +361,26 @@ __global__ void __launch_bounds__(kThreads, 4)
   p += region<T>(R);
   const T* sIh = stage(p, cf.Ih + im * kNX, nm * kNX);
   p += region<T>((R + 1) * kNX);
-  const T* sdyn = stage(p, z.dyn + im * kNX, nm * kNX);
+  // z's groups, element by element: the tile's rows may span lanes; dyn
+  // over the coefficient entries im .. ia+nc-1 (entry g: lane g / N)
+  T* sdyn = reinterpret_cast<T*>(p);
+  for (int e = threadIdx.x; e < nm * kNX; e += blockDim.x) {
+    const long long g = im + e / kNX, b = g / N;
+    cp_async_elem(sdyn + e,
+                  z + b * sd.zb + zo.dyn + (g - b * N) * kNX + e % kNX);
+  }
   p += region<T>((R + 1) * kNX);
-  const T* scop = stage(p, z.cop + ia * COP, nc * COP);
+  T* scop = reinterpret_cast<T*>(p);
+  stage_z(scop, z, sd.zb, zo.cop, COP, nc, jrow, rb, rk);
   p += region<T>(R * COP);
-  const T* sfric = stage(p, z.fric + ia * FR, nc * FR);
+  T* sfric = reinterpret_cast<T*>(p);
+  stage_z(sfric, z, sd.zb, zo.fric, FR, nc, jrow, rb, rk);
   p += region<T>(R * FR);
-  const T* strust = stage(p, z.trust + r0 * kTrust, nr * kTrust);
+  T* strust = reinterpret_cast<T*>(p);
+  stage_z(strust, z, sd.zb, zo.trust, kTrust, nr, nullptr, rb, rk);
   p += region<T>(R * kTrust);
-  const T* sslack = stage(p, z.slack + r0, nr);
+  T* sslack = reinterpret_cast<T*>(p);
+  stage_z(sslack, z, sd.zb, zo.slack, 1, nr, nullptr, rb, rk);
   cp_async_wait_all();
   __syncthreads();
 
@@ -350,8 +390,9 @@ __global__ void __launch_bounds__(kThreads, 4)
     const int lr = o / kNX, i = o - lr * kNX, k = rk[lr];
     const long long bi = static_cast<long long>(rb[lr]) * kNX + i;
     const int j = lr - (rb[lr] - tl.b0);  // this row's coefficient entry
+    const T* zl = z + rb[lr] * sd.zb + i;
     T acc = T(0);
-    if (k == 0) acc = cf.d0[bi] * z.init[bi];
+    if (k == 0) acc = cf.d0[bi] * zl[0];
     if (k < N) {
       const T* a = sAh + j * kNX * kNX + i;
       const T* dv = sdyn + (j + jm) * kNX;
@@ -364,7 +405,7 @@ __global__ void __launch_bounds__(kThreads, 4)
       const int jp = (j + jm - 1) * kNX + i;
       acc = acc + (-sIh[jp]) * sdyn[jp];
     }
-    if (k == N) acc = acc + cf.dN[bi] * z.fin[bi];
+    if (k == N) acc = acc + cf.dN[bi] * zl[zo.fin];
     if (i >= kAng && i < kAng + 3) {
       const T* th = sTh + lr * kTrust * 3 + (i - kAng);
       const T* tv = strust + lr * kTrust;
@@ -373,11 +414,12 @@ __global__ void __launch_bounds__(kThreads, 4)
       for (int q = 0; q < kTrust; ++q) s = fma(th[q * 3], tv[q], s);
       acc = acc + s;
     }
-    x[r0 * kNX + o] = acc;
+    x[rb[lr] * sd.xb + rk[lr] * sd.xk + i * sd.xi] = acc;
   }
   // u = Bh' dyn + (Gh' fric, + coph cop on entries 0:2) per contact
   for (int o = threadIdx.x; o < nc * NU; o += blockDim.x) {
     const int j = o / NU, q = o - j * NU, c = q / NUC, m = q - c * NUC;
+    const int lr = jrow[j];
     const T* bm = sBh + j * kNX * NU + q;
     const T* dv = sdyn + (j + jm) * kNX;
     T s = T(0);
@@ -392,7 +434,13 @@ __global__ void __launch_bounds__(kThreads, 4)
       const int cq = j * COP + 2 * c + m;
       uc = uc + scoph[cq] * scop[cq];
     }
-    u[ia * NU + o] = s + uc;
+    u[rb[lr] * sd.ub + rk[lr] * sd.uk + q * sd.ui] = s + uc;
+  }
+  // W's dummy control slot of knot N
+  for (int o = threadIdx.x; o < nr * NU; o += blockDim.x) {
+    const int lr = o / NU;
+    if (rk[lr] == N)
+      u[rb[lr] * sd.ub + N * sd.uk + (o - lr * NU) * sd.ui] = T(0);
   }
   // t = -(wh . trust) - sh * slack
   for (int lr = threadIdx.x; lr < nr; lr += blockDim.x) {
@@ -401,7 +449,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     T s = T(0);
 #pragma unroll
     for (int q = 0; q < kTrust; ++q) s = fma(wv[q], tv[q], s);
-    t[r0 + lr] = -s - ssh[lr] * sslack[lr];
+    t[rb[lr] * sd.tb + rk[lr] * sd.tk] = -s - ssh[lr] * sslack[lr];
   }
 }
 
@@ -420,20 +468,20 @@ unsigned grid_of(int B, int N) {
 }
 
 template <typename T, int C, int NUC>
-int launch_apply(Coef<T> cf, const T* x, const T* u, const T* t,
-                 Groups<T> z, int B, int N, Strides sd, void* stream) {
+int launch_apply(Coef<T> cf, const T* x, const T* u, const T* t, T* z,
+                 int B, int N, Strides sd, void* stream) {
   constraint_apply_kernel<T, C, NUC>
       <<<grid_of<T, C, NUC>(B, N), kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(cf, x, u, t, sd, z, B, N);
+         static_cast<cudaStream_t>(stream)>>>(cf, x, u, t, z, sd, B, N);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int C, int NUC>
-int launch_apply_T(Coef<T> cf, Groups<const T> z, T* x, T* u, T* t, int B,
-                   int N, void* stream) {
+int launch_apply_T(Coef<T> cf, const T* z, T* x, T* u, T* t, int B, int N,
+                   Strides sd, void* stream) {
   constraint_apply_T_kernel<T, C, NUC>
       <<<grid_of<T, C, NUC>(B, N), kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(cf, z, x, u, t, B, N);
+         static_cast<cudaStream_t>(stream)>>>(cf, z, x, u, t, sd, B, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -443,8 +491,8 @@ int launch_apply_T(Coef<T> cf, Groups<const T> z, T* x, T* u, T* t, int B,
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
 template <typename T>
-int apply(Coef<T> cf, const T* x, const T* u, const T* t, Groups<T> z,
-          int B, int N, int nx, int C, int nuc, Strides sd, void* stream) {
+int apply(Coef<T> cf, const T* x, const T* u, const T* t, T* z, int B,
+          int N, int nx, int C, int nuc, Strides sd, void* stream) {
   if (B < 0 || N < 0 || nx != kNX) return kInvalid;
   if (B == 0) return static_cast<int>(cudaSuccess);
   if (C == 4 && nuc == 3)
@@ -457,16 +505,16 @@ int apply(Coef<T> cf, const T* x, const T* u, const T* t, Groups<T> z,
 }
 
 template <typename T>
-int apply_T(Coef<T> cf, Groups<const T> z, T* x, T* u, T* t, int B, int N,
-            int nx, int C, int nuc, void* stream) {
+int apply_T(Coef<T> cf, const T* z, T* x, T* u, T* t, int B, int N,
+            int nx, int C, int nuc, Strides sd, void* stream) {
   if (B < 0 || N < 0 || nx != kNX) return kInvalid;
   if (B == 0) return static_cast<int>(cudaSuccess);
   if (C == 4 && nuc == 3)
-    return launch_apply_T<T, 4, 3>(cf, z, x, u, t, B, N, stream);
+    return launch_apply_T<T, 4, 3>(cf, z, x, u, t, B, N, sd, stream);
   if (C == 2 && nuc == 3)
-    return launch_apply_T<T, 2, 3>(cf, z, x, u, t, B, N, stream);
+    return launch_apply_T<T, 2, 3>(cf, z, x, u, t, B, N, sd, stream);
   if (C == 2 && nuc == 6)
-    return launch_apply_T<T, 2, 6>(cf, z, x, u, t, B, N, stream);
+    return launch_apply_T<T, 2, 6>(cf, z, x, u, t, B, N, sd, stream);
   return kInvalid;
 }
 
@@ -478,25 +526,22 @@ extern "C" {
   int cmpc_constraint_apply##SFX(                                            \
       const T* d0, const T* Ah, const T* Bh, const T* Ih, const T* dN,       \
       const T* Gh, const T* coph, const T* Th, const T* wh, const T* sh,     \
-      const T* x, const T* u, const T* t, T* init, T* dyn, T* fin, T* cop,   \
-      T* fric, T* trust, T* slack, int B, int N, int nx, int C, int nuc,     \
-      int xb, int xk, int xi, int ub, int uk, int ui, int tb, int tk,        \
-      void* stream) {                                                        \
+      const T* x, const T* u, const T* t, T* z, int B, int N, int nx, int C, \
+      int nuc, int xb, int xk, int xi, int ub, int uk, int ui, int tb,       \
+      int tk, int zb, void* stream) {                                        \
     return apply<T>(coef<T>(d0, Ah, Bh, Ih, dN, Gh, coph, Th, wh, sh), x, u, \
-                    t, Groups<T>{init, dyn, fin, cop, fric, trust, slack},   \
-                    B, N, nx, C, nuc,                                        \
-                    Strides{xb, xk, xi, ub, uk, ui, tb, tk}, stream);        \
+                    t, z, B, N, nx, C, nuc,                                  \
+                    Strides{xb, xk, xi, ub, uk, ui, tb, tk, zb}, stream);    \
   }                                                                          \
   int cmpc_constraint_apply_T##SFX(                                          \
       const T* d0, const T* Ah, const T* Bh, const T* Ih, const T* dN,       \
       const T* Gh, const T* coph, const T* Th, const T* wh, const T* sh,     \
-      const T* init, const T* dyn, const T* fin, const T* cop,               \
-      const T* fric, const T* trust, const T* slack, T* x, T* u, T* t,       \
-      int B, int N, int nx, int C, int nuc, void* stream) {                  \
-    return apply_T<T>(                                                       \
-        coef<T>(d0, Ah, Bh, Ih, dN, Gh, coph, Th, wh, sh),                   \
-        Groups<const T>{init, dyn, fin, cop, fric, trust, slack}, x, u, t,   \
-        B, N, nx, C, nuc, stream);                                           \
+      const T* z, T* x, T* u, T* t, int B, int N, int nx, int C, int nuc,    \
+      int zb, int xb, int xk, int xi, int ub, int uk, int ui, int tb,        \
+      int tk, void* stream) {                                                \
+    return apply_T<T>(coef<T>(d0, Ah, Bh, Ih, dN, Gh, coph, Th, wh, sh), z,  \
+                      x, u, t, B, N, nx, C, nuc,                             \
+                      Strides{xb, xk, xi, ub, uk, ui, tb, tk, zb}, stream);  \
   }
 
 CMPC_APPLY(_f32, float)

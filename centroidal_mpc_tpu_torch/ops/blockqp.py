@@ -15,13 +15,14 @@ factor_method='thomas', by the block-Thomas recursion below (plain
 PyTorch, as the JAX package's is XLA).
 
 Every tensor carries a leading scenario axis B; per-scenario scalars
-(residuals, step sizes, statuses) are (B,) tensors.  The JAX package runs
-this loop once for the whole vmapped batch and freezes converged lanes by
-masking; the port does the same with `torch.where`, and leaves the loop
-when no lane is active (one host sync per residual segment).  A segment
-has no host read, so on the card it is captured once as a CUDA graph per
-device, shapes and settings, and replayed (`_SegmentGraph`); on the CPU it
-runs eagerly.  The loop
+(residuals, step sizes, statuses) are (B,) tensors; inside the solve
+every QP vector is one tensor, the packed W (its dummy slot zero) or a
+(B, m) buffer of the `ZGroups` rows in field order.  The JAX package
+runs this loop once for the whole vmapped batch and freezes converged
+lanes by masking; the port does the same with `torch.where`, and leaves
+the loop when no lane is active (one host sync per residual segment).  A segment has no host read, so on the card it is
+captured once as a CUDA graph per device, shapes and settings, and
+replayed (`_SegmentGraph`); on the CPU it runs eagerly.  The loop
 counts its work in `ops.admm.counts` and opens the spans `qp.scale`,
 `admm.factor`, `admm.segment`, `qp.polish` and one `sync.*` a blocking
 host read (`utils.profiling.span`).
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import threading
 from typing import NamedTuple, Optional
 
@@ -45,7 +47,7 @@ from centroidal_mpc_tpu_torch.ops.admm import (QPSettings, STATUS_MAX_ITER,
                                                STATUS_PRIMAL_INFEASIBLE,
                                                STATUS_DUAL_INFEASIBLE,
                                                counts)
-from centroidal_mpc_tpu_torch.ops import block_tridiag, constraint_apply
+from centroidal_mpc_tpu_torch.ops import constraint_apply
 from centroidal_mpc_tpu_torch.ops.block_tridiag import (_matvec,
                                                         factor_batched,
                                                         solve_assoc,
@@ -55,6 +57,7 @@ from centroidal_mpc_tpu_torch.solver.ocp import (DYN_SLACK, INF, OcpConfig,
                                                  N_X, _chance_backoffs,
                                                  per_lane, rotated_pyramid,
                                                  sign_enumeration_matrix)
+from centroidal_mpc_tpu_torch.utils import profiling
 from centroidal_mpc_tpu_torch.utils.profiling import span
 
 
@@ -165,10 +168,8 @@ class ZGroups(NamedTuple):
 
 def zero_zgroups(B: int, N: int, C: int, dtype, device) -> ZGroups:
     """Zero constraint-space vector (a cold dual warm start)."""
-    def z(*shape):
-        return torch.zeros((B,) + shape, dtype=dtype, device=device)
-    return ZGroups(init=z(N_X), dyn=z(N, N_X), final=z(N_X), cop=z(N, C, 2),
-                   fric=z(N, C, 5), trust=z(N + 1, 8), slack=z(N + 1))
+    m = sum(math.prod(sh) for sh in _zshapes(N, C))
+    return _zviews(torch.zeros((B, m), dtype=dtype, device=device), N, C)
 
 
 class WVars(NamedTuple):
@@ -179,46 +180,43 @@ class WVars(NamedTuple):
     t: torch.Tensor   # (B, N+1)
 
 
-def _zmap(f, *zs: ZGroups) -> ZGroups:
-    return ZGroups(*(f(*parts) for parts in zip(*zs)))
+def _zshapes(N: int, C: int) -> tuple:
+    """The shape of each `ZGroups` group of one lane, in field order."""
+    return ((N_X,), (N, N_X), (N_X,), (N, C, 2), (N, C, 5), (N + 1, 8),
+            (N + 1,))
 
 
-def _wmap(f, *ws: WVars) -> WVars:
-    return WVars(*(f(*parts) for parts in zip(*ws)))
+def _zviews(z: torch.Tensor, N: int, C: int) -> ZGroups:
+    """The groups of a lane-major (B, m) constraint-space buffer as views
+    of it (dyn a (B, N, nx) view, and so on)."""
+    shapes = _zshapes(N, C)
+    parts = z.split([math.prod(sh) for sh in shapes], dim=1)
+    return ZGroups(*(p.unflatten(1, sh) for p, sh in zip(parts, shapes)))
 
 
-def _bc(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """(B,) per-lane values broadcastable against `like` (B, ...)."""
-    return v.reshape((-1,) + (1,) * (like.dim() - 1))
+def _zflat(z: ZGroups) -> torch.Tensor:
+    """One (B, m) buffer of a grouped constraint-space vector."""
+    return torch.cat([g.flatten(1) for g in z], dim=1)
+
+
+def _wpacked(w: WVars) -> torch.Tensor:
+    """The packed (B, N+1, V) form of w, its dummy control slot of knot N
+    zero (`_Scaled.wvars` gives x, u and t back as views of it)."""
+    x, u, t = w
+    nx = x.shape[-1]
+    W = x.new_zeros(x.shape[:2] + (nx + u.shape[-1] + 1,))
+    W[..., :nx], W[:, :-1, nx:-1], W[..., -1] = x, u, t
+    return W
 
 
 def _lane_absmax(a: torch.Tensor) -> torch.Tensor:
+    """Per-lane inf-norm of a (B, ...) tensor."""
     return a.abs().flatten(1).amax(1)
 
 
-def _zmax(z) -> torch.Tensor:
-    """Per-lane inf-norm over every group of a ZGroups/WVars."""
-    out = _lane_absmax(z[0])
-    for part in z[1:]:
-        out = torch.maximum(out, _lane_absmax(part))
-    return out
-
-
-_wmax = _zmax
-
-
-def _lane_sum(a: torch.Tensor) -> torch.Tensor:
-    return a.flatten(1).sum(1)
-
-
-def _dot(a, b) -> torch.Tensor:
-    """Per-lane inner product of two ZGroups (or WVars)."""
-    return sum(_lane_sum(x * y) for x, y in zip(a, b))
-
-
-def _scale(c: torch.Tensor, z):
-    """Per-lane scalar c (B,) times every group of z."""
-    return type(z)(*(_bc(c, v) * v for v in z))
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-lane inner product of two (B, ...) tensors."""
+    return (a * b).flatten(1).sum(1)
 
 
 class _Scaled(NamedTuple):
@@ -227,7 +225,7 @@ class _Scaled(NamedTuple):
 
     Px: torch.Tensor       # (B, N+1, nx, nx) scaled state cost (includes c)
     Pu: torch.Tensor       # (B, N, nu, nu)
-    q: WVars               # scaled linear cost
+    q: torch.Tensor        # (B, N+1, V) scaled linear cost, packed
     d0: torch.Tensor       # (B, nx) init-row diagonal
     Ah: torch.Tensor       # (B, N, nx, nx)
     Bh: torch.Tensor       # (B, N, nx, nu)
@@ -238,19 +236,29 @@ class _Scaled(NamedTuple):
     Th: torch.Tensor       # (B, N+1, 8, 3) trust rows on angular momentum
     wh: torch.Tensor       # (B, N+1, 8) trust-row slack coefficient
     sh: torch.Tensor       # (B, N+1) slack-row coefficient
-    l: ZGroups
-    u: ZGroups
-    D: WVars               # variable scaling
-    E: ZGroups             # row scaling
+    l: torch.Tensor        # (B, m) lower bounds
+    u: torch.Tensor        # (B, m) upper bounds
+    D: torch.Tensor        # (B, N+1, V) variable scaling, packed; its
+                           # dummy slot 1, so that w / D keeps it zero
+    E: torch.Tensor        # (B, m) row scaling
     c: torch.Tensor        # (B,) cost scaling
 
+    def zgroups(self, z: torch.Tensor) -> ZGroups:
+        """The groups of a (B, m) buffer of this problem, as views."""
+        return _zviews(z, self.Ah.shape[1], self.Gh.shape[2])
 
-def _apply_A_plain(s: _Scaled, w: WVars) -> ZGroups:
-    x, u, t = w
+    def wvars(self, W: torch.Tensor) -> WVars:
+        """x, u and t of a packed variable-space vector, as views."""
+        nx = self.Ah.shape[2]
+        return WVars(x=W[..., :nx], u=W[:, :-1, nx:-1], t=W[..., -1])
+
+
+def _apply_A_plain(s: _Scaled, W: torch.Tensor) -> torch.Tensor:
+    x, u, t = s.wvars(W)
     nb, n = s.Ah.shape[0], s.Ah.shape[1]
     C, nuc = s.Gh.shape[2], s.Gh.shape[4]
     u_c = u.reshape(nb, n, C, nuc)
-    return ZGroups(
+    return _zflat(ZGroups(
         init=s.d0 * x[:, 0],
         dyn=(torch.einsum("bkij,bkj->bki", s.Ah, x[:, :-1])
              + torch.einsum("bkij,bkj->bki", s.Bh, u) - s.Ih * x[:, 1:]),
@@ -260,10 +268,11 @@ def _apply_A_plain(s: _Scaled, w: WVars) -> ZGroups:
         trust=(torch.einsum("bkpj,bkj->bkp", s.Th, x[..., 6:9])
                - s.wh * t[..., None]),
         slack=-s.sh * t,
-    )
+    ))
 
 
-def _apply_AT_plain(s: _Scaled, z: ZGroups) -> WVars:
+def _apply_AT_plain(s: _Scaled, z: torch.Tensor) -> torch.Tensor:
+    z = s.zgroups(z)
     nb, n, nx = s.Ah.shape[0], s.Ah.shape[1], s.Ah.shape[2]
     C, nuc = s.Gh.shape[2], s.Gh.shape[4]
     x = torch.zeros((nb, n + 1, nx), dtype=z.dyn.dtype, device=z.dyn.device)
@@ -277,31 +286,31 @@ def _apply_AT_plain(s: _Scaled, z: ZGroups) -> WVars:
     u_c[..., :2] += s.coph * z.cop
     u = u + u_c.reshape(nb, n, C * nuc)
     t = -(s.wh * z.trust).sum(-1) - s.sh * z.slack
-    return WVars(x=x, u=u, t=t)
+    return _wpacked(WVars(x=x, u=u, t=t))
 
 
 def _coefficients(s: _Scaled) -> tuple:
     return tuple(getattr(s, f) for f in constraint_apply.COEFFICIENTS)
 
 
-def _apply_A(s: _Scaled, w: WVars) -> ZGroups:
-    """z = A w: one `constraint_apply` kernel for CUDA tensors, the plain
-    einsums for CPU tensors."""
+def _apply_A(s: _Scaled, W: torch.Tensor) -> torch.Tensor:
+    """z = A w, (B, m) from a packed W: one `constraint_apply` kernel for
+    CUDA tensors, the plain einsums for CPU tensors."""
     if s.Ah.device.type == "cpu":
-        return _apply_A_plain(s, w)
-    return ZGroups(*constraint_apply.apply_A(_coefficients(s), *w))
+        return _apply_A_plain(s, W)
+    return constraint_apply.apply_A(_coefficients(s), *s.wvars(W))
 
 
-def _apply_AT(s: _Scaled, z: ZGroups) -> WVars:
-    """w = A' z: one `constraint_apply_T` kernel for CUDA tensors, the
-    plain einsums for CPU tensors."""
+def _apply_AT(s: _Scaled, z: torch.Tensor) -> torch.Tensor:
+    """w = A' z, packed, from a (B, m) z: one `constraint_apply_T` kernel
+    for CUDA tensors, the plain einsums for CPU tensors."""
     if s.Ah.device.type == "cpu":
         return _apply_AT_plain(s, z)
-    return WVars(*constraint_apply.apply_AT(_coefficients(s), z))
+    return constraint_apply.apply_AT(_coefficients(s), z)
 
 
-def _row_norms(s: _Scaled) -> ZGroups:
-    return ZGroups(
+def _row_norms(s: _Scaled) -> torch.Tensor:
+    return _zflat(ZGroups(
         init=s.d0.abs(),
         dyn=torch.maximum(s.Ah.abs().amax(-1),
                           torch.maximum(s.Bh.abs().amax(-1), s.Ih.abs())),
@@ -310,11 +319,12 @@ def _row_norms(s: _Scaled) -> ZGroups:
         fric=s.Gh.abs().amax(-1),
         trust=torch.maximum(s.Th.abs().amax(-1), s.wh),
         slack=s.sh,
-    )
+    ))
 
 
-def _col_norms(s: _Scaled) -> WVars:
-    """Per-variable inf-norm over the stacked [P; A] columns."""
+def _col_norms(s: _Scaled) -> torch.Tensor:
+    """Per-variable inf-norm over the stacked [P; A] columns, packed (the
+    dummy slot 0)."""
     nb, n = s.Ah.shape[0], s.Ah.shape[1]
     C, nuc = s.Gh.shape[2], s.Gh.shape[4]
     cx = s.Px.abs().amax(2)                                # (B, N+1, nx)
@@ -329,7 +339,7 @@ def _col_norms(s: _Scaled) -> WVars:
     cu = torch.maximum(cu, cu_c.reshape(nb, n, C * nuc))
     cu = torch.maximum(cu, s.Bh.abs().amax(2))
     ct = torch.maximum(s.wh.amax(-1), s.sh)
-    return WVars(x=cx, u=cu, t=ct)
+    return _wpacked(WVars(x=cx, u=cu, t=ct))
 
 
 def _ruiz(qp: BlockQP, iters: int) -> _Scaled:
@@ -343,38 +353,35 @@ def _ruiz(qp: BlockQP, iters: int) -> _Scaled:
     def full(like, v):
         return torch.full_like(like, v)
 
+    l = _zflat(ZGroups(init=qp.x_init, dyn=qp.r_dyn - eps, final=qp.final_l,
+                       cop=qp.cop_l, fric=full(qp.fric_ub, -INF),
+                       trust=full(qp.trust_ub, -INF),
+                       slack=full(qp.qt, -INF)))
     s = _Scaled(
         Px=qp.Wx[:, None].expand(nb, N + 1, nx, nx),
         Pu=qp.Wu[:, None].expand(nb, N, nu, nu),
-        q=WVars(x=qp.qx, u=torch.zeros((nb, N, nu), dtype=dtype,
-                                       device=dev), t=qp.qt),
+        q=_wpacked(WVars(x=qp.qx, u=torch.zeros((nb, N, nu), dtype=dtype,
+                                                device=dev), t=qp.qt)),
         d0=ones(nx), Ah=qp.A, Bh=qp.B, Ih=ones(N, nx), dN=ones(nx),
         Gh=qp.G, coph=qp.cop_act,
         Th=qp.penum.expand(nb, N + 1, 8, 3),
         wh=qp.inv_omega[:, None, None].expand(nb, N + 1, 8),
         sh=ones(N + 1),
-        l=ZGroups(init=qp.x_init, dyn=qp.r_dyn - eps, final=qp.final_l,
-                  cop=qp.cop_l, fric=full(qp.fric_ub, -INF),
-                  trust=full(qp.trust_ub, -INF),
-                  slack=full(qp.qt, -INF)),
-        u=ZGroups(init=qp.x_init, dyn=qp.r_dyn + eps, final=qp.final_u,
-                  cop=qp.cop_u, fric=qp.fric_ub, trust=qp.trust_ub,
-                  slack=torch.zeros_like(qp.qt)),
-        D=WVars(x=ones(N + 1, nx), u=ones(N, nu), t=ones(N + 1)),
-        E=ZGroups(init=ones(nx), dyn=ones(N, nx), final=ones(nx),
-                  cop=torch.ones_like(qp.cop_act),
-                  fric=torch.ones_like(qp.fric_ub),
-                  trust=torch.ones_like(qp.trust_ub), slack=ones(N + 1)),
-        c=ones(),
+        l=l,
+        u=_zflat(ZGroups(init=qp.x_init, dyn=qp.r_dyn + eps,
+                         final=qp.final_u, cop=qp.cop_u, fric=qp.fric_ub,
+                         trust=qp.trust_ub, slack=torch.zeros_like(qp.qt))),
+        D=ones(N + 1, nx + nu + 1), E=torch.ones_like(l), c=ones(),
     )
 
-    def rescale(s: _Scaled, d: WVars, e: ZGroups) -> _Scaled:
+    def rescale(s: _Scaled, D: torch.Tensor, E: torch.Tensor) -> _Scaled:
+        d, e = s.wvars(D), s.zgroups(E)
         C, nuc = s.Gh.shape[2], s.Gh.shape[4]
         du_f = d.u.reshape(nb, N, C, nuc)
         return s._replace(
             Px=s.Px * d.x[..., :, None] * d.x[..., None, :],
             Pu=s.Pu * d.u[..., :, None] * d.u[..., None, :],
-            q=WVars(x=s.q.x * d.x, u=s.q.u * d.u, t=s.q.t * d.t),
+            q=s.q * D,
             d0=s.d0 * e.init * d.x[:, 0],
             Ah=s.Ah * e.dyn[..., None] * d.x[:, :-1, None, :],
             Bh=s.Bh * e.dyn[..., None] * d.u[:, :, None, :],
@@ -385,10 +392,7 @@ def _ruiz(qp: BlockQP, iters: int) -> _Scaled:
             Th=s.Th * e.trust[..., None] * d.x[:, :, None, 6:9],
             wh=s.wh * e.trust * d.t[..., None],
             sh=s.sh * e.slack * d.t,
-            l=_zmap(lambda a, b: a * b, s.l, e),
-            u=_zmap(lambda a, b: a * b, s.u, e),
-            D=_wmap(lambda a, b: a * b, s.D, d),
-            E=_zmap(lambda a, b: a * b, s.E, e),
+            l=s.l * E, u=s.u * E, D=s.D * D, E=s.E * E,
         )
 
     def inv_sqrt(a):
@@ -398,44 +402,45 @@ def _ruiz(qp: BlockQP, iters: int) -> _Scaled:
     for _ in range(iters):
         # column and row norms both from the SAME current scaled problem,
         # applied together (the OSQP iteration)
-        d = _wmap(inv_sqrt, _col_norms(s))
-        e = _zmap(inv_sqrt, _row_norms(s))
-        s = rescale(s, d, e)
+        s = rescale(s, inv_sqrt(_col_norms(s)), inv_sqrt(_row_norms(s)))
         # cost normalization: gamma = 1/max(mean |P| col norm, |q|_inf),
         # the mean over the full dense variable count
         p_sum = (s.Px.abs().amax(2).flatten(1).sum(1)
                  + s.Pu.abs().amax(2).flatten(1).sum(1))
-        gamma_den = torch.maximum(p_sum / n_dense, _wmax(s.q))
+        gamma_den = torch.maximum(p_sum / n_dense, _lane_absmax(s.q))
         gamma = 1.0 / torch.where(gamma_den > 0, gamma_den,
                                   torch.ones_like(gamma_den))
-        s = s._replace(Px=s.Px * _bc(gamma, s.Px), Pu=s.Pu * _bc(gamma, s.Pu),
-                       q=_scale(gamma, s.q), c=s.c * gamma)
+        s = s._replace(Px=s.Px * gamma[:, None, None, None],
+                       Pu=s.Pu * gamma[:, None, None, None],
+                       q=gamma[:, None, None] * s.q, c=s.c * gamma)
     # the constraint kernels take contiguous blocks (without scaling
     # iterations Th, wh are still broadcast views)
     return s._replace(**{f: getattr(s, f).contiguous()
                          for f in constraint_apply.COEFFICIENTS})
 
 
-def _rho_groups(settings: QPSettings, rho: torch.Tensor,
-                s: _Scaled) -> ZGroups:
-    """Per-row ADMM step sizes at full group shapes from per-lane rho
-    (B,); equality rows get eq_rho_scale * rho."""
-    req = settings.eq_rho_scale * rho
-    return ZGroups(*(_bc(r, like).expand_as(like)
-                     for r, like in zip((req, req, req, rho, rho, rho, rho),
-                                        s.l)))
+def _rho_rows(settings: QPSettings, rho: torch.Tensor,
+              s: _Scaled) -> torch.Tensor:
+    """Per-row ADMM step sizes (B, m) from per-lane rho (B,): rho times
+    a row factor, eq_rho_scale on the equality rows (init, dyn, final)
+    and 1 elsewhere."""
+    scale = torch.ones_like(s.l[:1])
+    for rows in s.zgroups(scale)[:3]:
+        rows.fill_(settings.eq_rho_scale)
+    return rho[:, None] * scale
 
 
-def _assemble_blocks(s: _Scaled, r: ZGroups, sigma: float):
+def _assemble_blocks(s: _Scaled, r: torch.Tensor, sigma: float):
     """Block-tridiagonal M = P + sigma I + A' diag(rho) A for per-row step
-    sizes r.  Returns (diag (B, N+1, V, V), off (B, N, V, V)) with per-knot
-    variable order [x (nx), u (nu), t (1)]; the control slot of knot N is
-    a padded dummy with unit diagonal."""
+    sizes r (B, m).  Returns (diag (B, N+1, V, V), off (B, N, V, V)) with
+    per-knot variable order [x (nx), u (nu), t (1)]; the control slot of
+    knot N is a padded dummy with unit diagonal."""
     nb, N, nx, nu = s.Ah.shape[0], s.Ah.shape[1], s.Ah.shape[2], s.Bh.shape[-1]
     V = nx + nu + 1
     dtype, dev = s.Ah.dtype, s.Ah.device
     C, nuc = s.Gh.shape[2], s.Gh.shape[4]
     xs, us = slice(0, nx), slice(nx, nx + nu)
+    r = s.zgroups(r)
     eye_nx = torch.eye(nx, dtype=dtype, device=dev)
 
     diag = (torch.zeros((nb, N + 1, V, V), dtype=dtype, device=dev)
@@ -478,20 +483,6 @@ def _assemble_blocks(s: _Scaled, r: ZGroups, sigma: float):
     off[:, :, xs, xs] = -rI * s.Ah
     off[:, :, xs, us] = -rI * s.Bh
     return diag, off
-
-
-def _pack(w: WVars, nx: int, nu: int) -> torch.Tensor:
-    nb, n = w.u.shape[0], w.u.shape[1]
-    W = torch.zeros((nb, n + 1, nx + nu + 1), dtype=w.x.dtype,
-                    device=w.x.device)
-    W[..., :nx] = w.x
-    W[:, :-1, nx:nx + nu] = w.u
-    W[..., -1] = w.t
-    return W
-
-
-def _unpack(W: torch.Tensor, nx: int, nu: int) -> WVars:
-    return WVars(x=W[..., :nx], u=W[:, :-1, nx:nx + nu], t=W[..., -1])
 
 
 class ThomasFactor(NamedTuple):
@@ -540,18 +531,17 @@ def _backend(settings: QPSettings):
     return factor_batched, solve_batched
 
 
-def _solve(backsolve, fac, w: WVars, nx: int, nu: int) -> WVars:
-    return _unpack(backsolve(fac, _pack(w, nx, nu)), nx, nu)
+def _applyP(s: _Scaled, W: torch.Tensor) -> torch.Tensor:
+    """P w, packed (no cost on t; the dummy slot zero)."""
+    w, out = s.wvars(W), torch.zeros_like(W)
+    p = s.wvars(out)
+    p.x.copy_(torch.einsum("bkij,bkj->bki", s.Px, w.x))
+    p.u.copy_(torch.einsum("bkij,bkj->bki", s.Pu, w.u))
+    return out
 
 
-def _applyP(s: _Scaled, w: WVars) -> WVars:
-    return WVars(x=torch.einsum("bkij,bkj->bki", s.Px, w.x),
-                 u=torch.einsum("bkij,bkj->bki", s.Pu, w.u),
-                 t=torch.zeros_like(w.t))
-
-
-def _certificates(s: _Scaled, settings: QPSettings, dw: WVars,
-                  dy: ZGroups):
+def _certificates(s: _Scaled, settings: QPSettings, dw: torch.Tensor,
+                  dy: torch.Tensor):
     """OSQP primal/dual infeasibility certificate tests (Stellato et al.
     sec. 3.4) on the iterate deltas of one residual segment; (B,) bools.
 
@@ -559,58 +549,44 @@ def _certificates(s: _Scaled, settings: QPSettings, dw: WVars,
     D dw, both tested against the unscaled problem data.  Infinite-bound
     rows require the recession-feasible sign of dy to within eps instead
     of entering the support function."""
-    nb = s.sh.shape[0]
-    dev = s.sh.device
-    y_norm = _zmax(_zmap(lambda a, e: a * e, dy, s.E))
-    atdy = _wmax(_wmap(lambda a, d: a / d, _apply_AT(s, dy), s.D))
+    fin_l, fin_u = s.l / s.E > -0.5 * INF, s.u / s.E < 0.5 * INF
+    ey = dy * s.E
+    y_norm = _lane_absmax(ey)
+    atdy = _lane_absmax(_apply_AT(s, dy) / s.D)
     eps_p = settings.eps_pinf * y_norm
-    sup = torch.zeros_like(y_norm)
-    sign_ok = torch.ones(nb, dtype=torch.bool, device=dev)
-    for lo, hi, d, e in zip(s.l, s.u, dy, s.E):
-        fin_u = (hi / e) < 0.5 * INF
-        fin_l = (lo / e) > -0.5 * INF
-        zero = torch.zeros_like(d)
-        sup = sup + _lane_sum(torch.where(fin_u, hi * d.clamp(min=0.0), zero)
-                              + torch.where(fin_l, lo * d.clamp(max=0.0),
-                                            zero))
-        ep = _bc(eps_p, d)
-        sign_ok = sign_ok & (fin_u | (e * d <= ep)).flatten(1).all(1)
-        sign_ok = sign_ok & (fin_l | (e * d >= -ep)).flatten(1).all(1)
+    zero = torch.zeros_like(dy)
+    sup = (torch.where(fin_u, s.u * dy.clamp(min=0.0), zero)
+           + torch.where(fin_l, s.l * dy.clamp(max=0.0), zero)).sum(1)
+    ep = eps_p[:, None]
+    sign_ok = ((fin_u | (ey <= ep)).all(1)
+               & (fin_l | (ey >= -ep)).all(1))
     pinf = (y_norm > 0) & (atdy <= eps_p) & sign_ok & (sup <= -eps_p)
 
-    x_norm = _wmax(_wmap(lambda a, d: a * d, dw, s.D))
-    pdx = _wmax(_wmap(lambda a, d: a / d, _applyP(s, dw), s.D)) / s.c
+    x_norm = _lane_absmax(dw * s.D)
+    pdx = _lane_absmax(_applyP(s, dw) / s.D) / s.c
     qdx = _dot(s.q, dw) / s.c
-    Adw = _apply_A(s, dw)
-    eps_d = settings.eps_dinf * x_norm
-    cone_ok = torch.ones(nb, dtype=torch.bool, device=dev)
-    for lo, hi, a, e in zip(s.l, s.u, Adw, s.E):
-        a_un = a / e
-        fin_u = (hi / e) < 0.5 * INF
-        fin_l = (lo / e) > -0.5 * INF
-        ed = _bc(eps_d, a)
-        cone_ok = cone_ok & (~fin_u | (a_un <= ed)).flatten(1).all(1)
-        cone_ok = cone_ok & (~fin_l | (a_un >= -ed)).flatten(1).all(1)
-    dinf = (x_norm > 0) & (pdx <= eps_d) & (qdx <= -eps_d) & cone_ok
+    a_un = _apply_A(s, dw) / s.E
+    ed = (settings.eps_dinf * x_norm)[:, None]
+    cone_ok = ((~fin_u | (a_un <= ed)).all(1)
+               & (~fin_l | (a_un >= -ed)).all(1))
+    dinf = (x_norm > 0) & (pdx <= ed[:, 0]) & (qdx <= -ed[:, 0]) & cone_ok
     return pinf, dinf
 
 
-def _two_sum(hi: ZGroups, lo: ZGroups, d: ZGroups):
+def _two_sum(hi: torch.Tensor, lo: torch.Tensor, d: torch.Tensor):
     """Accumulate a correction d into the two-float dual (hi, lo):
     hi' = fl(hi + d) with the exact rounding error folded into lo (Knuth
     TwoSum, branch-free, no FMA).  Plain tensor ops: PyTorch neither
     reassociates nor contracts them."""
-    def one(h, l, dd):
-        s_ = h + dd
-        bb = s_ - h
-        err = (h - (s_ - bb)) + (dd - bb)
-        return s_, l + err
-    out = [one(h, l, dd) for h, l, dd in zip(hi, lo, d)]
-    return (ZGroups(*(o[0] for o in out)), ZGroups(*(o[1] for o in out)))
+    s_ = hi + d
+    bb = s_ - hi
+    err = (hi - (s_ - bb)) + (d - bb)
+    return s_, lo + err
 
 
-def _residuals(s: _Scaled, settings: QPSettings, w: WVars, z: ZGroups,
-               y: ZGroups, y_lo: Optional[ZGroups] = None):
+def _residuals(s: _Scaled, settings: QPSettings, w: torch.Tensor,
+               z: torch.Tensor, y: torch.Tensor,
+               y_lo: Optional[torch.Tensor] = None):
     """Unscaled OSQP termination residuals and their relative scales,
     each (B,).  y_lo: optional low part of a two-float dual (the dual
     residual is then P w + q + A'y + A'y_lo)."""
@@ -618,24 +594,21 @@ def _residuals(s: _Scaled, settings: QPSettings, w: WVars, z: ZGroups,
     Pw = _applyP(s, w)
     ATy = _apply_AT(s, y)
     if y_lo is not None:
-        ATy = _wmap(lambda a, b: a + b, ATy, _apply_AT(s, y_lo))
-    prim = _zmax(_zmap(lambda a, b, e: (a - b) / e, Aw, z, s.E))
-    dual = _wmax(_wmap(lambda p, q, at, d: (p + q + at) / d,
-                       Pw, s.q, ATy, s.D)) / s.c
-    prim_scale = torch.maximum(
-        _zmax(_zmap(lambda a, e: a / e, Aw, s.E)),
-        _zmax(_zmap(lambda a, e: a / e, z, s.E)))
+        ATy = ATy + _apply_AT(s, y_lo)
+    prim = _lane_absmax((Aw - z) / s.E)
+    dual = _lane_absmax((Pw + s.q + ATy) / s.D) / s.c
+    prim_scale = torch.maximum(_lane_absmax(Aw / s.E),
+                               _lane_absmax(z / s.E))
     dual_scale = torch.maximum(
-        torch.maximum(_wmax(_wmap(lambda a, d: a / d, Pw, s.D)),
-                      _wmax(_wmap(lambda a, d: a / d, ATy, s.D))),
-        _wmax(_wmap(lambda a, d: a / d, s.q, s.D))) / s.c
+        torch.maximum(_lane_absmax(Pw / s.D), _lane_absmax(ATy / s.D)),
+        _lane_absmax(s.q / s.D)) / s.c
     eps_prim = settings.eps_abs + settings.eps_rel * prim_scale
     eps_dual = settings.eps_abs + settings.eps_rel * dual_scale
     return prim, dual, eps_prim, eps_dual, prim_scale, dual_scale
 
 
-def _polish(s: _Scaled, settings: QPSettings, sigma: float, w: WVars,
-            y: ZGroups, nx: int, nu: int):
+def _polish(s: _Scaled, settings: QPSettings, sigma: float, w: torch.Tensor,
+            y: torch.Tensor):
     """OSQP-style solution polish as augmented-Lagrangian iterative
     refinement, then CG dual refinement with a two-float dual.
 
@@ -667,33 +640,33 @@ def _polish(s: _Scaled, settings: QPSettings, sigma: float, w: WVars,
     # a row that left its bound keeps a dual of the iterate's round-off
     # (~1e-10 in float32): taken as active, it pins the CoP to an edge
     ytol_cop = max(ytol, torch.finfo(dtype).eps)
+    cop = torch.zeros_like(s.l[0], dtype=torch.bool)
+    s.zgroups(cop[None]).cop.fill_(True)
+    # the first round's dual tolerance of each row
+    ytol_first = torch.where(cop, torch.full_like(s.l[0], ytol_cop),
+                             torch.full_like(s.l[0], ytol))
+    # finiteness judged on unscaled bounds: row scaling moves the 1e20
+    # sentinel by O(1) factors
+    fin_l, fin_u = s.l / s.E > -0.5 * INF, s.u / s.E < 0.5 * INF
 
     def detect(z, y, first: bool):
-        masks, targets = [], []
-        for name, lo, hi, zz, yy, ee in zip(ZGroups._fields, s.l, s.u, z, y,
-                                            s.E):
-            # finiteness judged on unscaled bounds: row scaling moves the
-            # 1e20 sentinel by O(1) factors
-            fin_l, fin_u = lo / ee > -0.5 * INF, hi / ee < 0.5 * INF
-            if name != "cop":
-                low = (((zz - lo) < atol) | (yy < -ytol)) & fin_l
-                high = (((hi - zz) < atol) | (yy > ytol)) & fin_u
-            elif first:
-                low = (((zz - lo) < atol) | (yy < -ytol_cop)) & fin_l
-                high = (((hi - zz) < atol) | (yy > ytol_cop)) & fin_u
-            else:
-                low = ((zz - lo) < atol) & (yy <= ytol_cop) & fin_l
-                high = ((hi - zz) < atol) & (yy >= -ytol_cop) & fin_u
-            m = low | high
-            masks.append(m)
-            targets.append(torch.where(m, torch.where(high, hi, lo),
-                                       torch.zeros_like(zz)))
-        return ZGroups(*masks), ZGroups(*targets)
+        near_l, near_u = (z - s.l) < atol, (s.u - z) < atol
+        if first:
+            low = near_l | (y < -ytol_first)
+            high = near_u | (y > ytol_first)
+        else:
+            low = torch.where(cop, near_l & (y <= ytol_cop),
+                              near_l | (y < -ytol))
+            high = torch.where(cop, near_u & (y >= -ytol_cop),
+                               near_u | (y > ytol))
+        low, high = low & fin_l, high & fin_u
+        m = low | high
+        return m, torch.where(m, torch.where(high, s.u, s.l),
+                              torch.zeros_like(z))
 
     w_p, y_p = w, y
     Aw = _apply_A(s, w_p)   # maintained as A w_p
-    V = nx + nu + 1
-    eye = torch.eye(V, dtype=dtype, device=dev)
+    eye = torch.eye(w.shape[-1], dtype=dtype, device=dev)
     for rnd in range(max(settings.polish_rounds, 1)):
         # later rounds raise the penalty at constant cond(M)
         ramp = settings.polish_rho_ramp ** rnd
@@ -701,63 +674,48 @@ def _polish(s: _Scaled, settings: QPSettings, sigma: float, w: WVars,
         dsig = (torch.full((), settings.polish_sigma * ramp, dtype=dtype,
                            device=dev) - sigma)
         mask, b_a = detect(Aw, y_p, rnd == 0)
-        rho_p = ZGroups(*(m.to(dtype) * beta for m in mask))
+        rho_p = mask.to(dtype) * beta
         diag, off = _assemble_blocks(s, rho_p, sigma)
         fac_p = factorize(diag + dsig * eye, off)
 
-        y_p = ZGroups(*(torch.where(m, yy, torch.zeros_like(yy))
-                        for m, yy in zip(mask, y_p)))
+        y_p = torch.where(mask, y_p, torch.zeros_like(y_p))
         for _ in range(settings.polish_iters):
-            r_p = ZGroups(*(rr * (bb - aa) for rr, bb, aa in
-                            zip(rho_p, b_a, Aw)))            # rho-scaled
-            rpy = ZGroups(*(rp - yy for rp, yy in zip(r_p, y_p)))
-            rhs = _wmap(lambda pw, qq, at: -(pw + qq) + at,
-                        _applyP(s, w_p), s.q, _apply_AT(s, rpy))
-            dw = _solve(backsolve, fac_p, rhs, nx, nu)
-            w_p = _wmap(lambda a, b: a + b, w_p, dw)
+            r_p = rho_p * (b_a - Aw)                      # rho-scaled
+            rhs = -(_applyP(s, w_p) + s.q) + _apply_AT(s, r_p - y_p)
+            w_p = w_p + backsolve(fac_p, rhs)
             Aw = _apply_A(s, w_p)
-            y_p = ZGroups(*(yy + rr * (aa - bb) for yy, rr, aa, bb in
-                            zip(y_p, rho_p, Aw, b_a)))
+            y_p = y_p + rho_p * (Aw - b_a)
 
     # two-float dual from here on (see _two_sum)
-    y_lo = ZGroups(*(torch.zeros_like(v) for v in y_p))
+    y_lo = torch.zeros_like(y_p)
 
     if settings.polish_cg_iters > 0:
-        maskf = ZGroups(*(m.to(dtype) for m in mask))
+        maskf = mask.to(dtype)
 
         def S_op(v):
-            vm = ZGroups(*(mf * vv for mf, vv in zip(maskf, v)))
-            out = _apply_A(s, _solve(backsolve, fac_p, _apply_AT(s, vm),
-                                         nx, nu))
-            return ZGroups(*(mf * oo for mf, oo in zip(maskf, out)))
+            return maskf * _apply_A(s, backsolve(fac_p,
+                                                 _apply_AT(s, maskf * v)))
 
         for _ in range(max(settings.polish_cg_restarts, 1)):
-            g = _wmap(lambda pw, qq, at, atl: pw + qq + at + atl,
-                      _applyP(s, w_p), s.q, _apply_AT(s, y_p),
-                      _apply_AT(s, y_lo))
-            rhs_cg = _apply_A(s, _solve(backsolve, fac_p, g, nx, nu))
-            r = ZGroups(*(-(mf * rr) for mf, rr in zip(maskf, rhs_cg)))
-            dy = ZGroups(*(torch.zeros_like(v) for v in r))
+            g = (_applyP(s, w_p) + s.q + _apply_AT(s, y_p)
+                 + _apply_AT(s, y_lo))
+            r = -(maskf * _apply_A(s, backsolve(fac_p, g)))
+            dy = torch.zeros_like(r)
             p = r
             rr_old = _dot(r, r)
             for _ in range(settings.polish_cg_iters):
                 Sp = S_op(p)
-                alpha = rr_old / _dot(p, Sp).clamp(min=1e-30)
-                dy = ZGroups(*(d + av for d, av in
-                               zip(dy, _scale(alpha, p))))
-                r = ZGroups(*(rv - av for rv, av in
-                              zip(r, _scale(alpha, Sp))))
+                alpha = (rr_old / _dot(p, Sp).clamp(min=1e-30))[:, None]
+                dy = dy + alpha * p
+                r = r - alpha * Sp
                 rr_new = _dot(r, r)
                 beta_cg = rr_new / rr_old.clamp(min=1e-30)
-                p = ZGroups(*(rv + bv for rv, bv in
-                              zip(r, _scale(beta_cg, p))))
+                p = r + beta_cg[:, None] * p
                 rr_old = rr_new
             y_p, y_lo = _two_sum(y_p, y_lo, dy)
 
     # the CG refinement moved only y, so Aw still equals A w_p
-    z_p = ZGroups(*(torch.clamp(aa, lo, hi) for aa, lo, hi in
-                    zip(Aw, s.l, s.u)))
-    return w_p, z_p, y_p, y_lo
+    return w_p, torch.clamp(Aw, s.l, s.u), y_p, y_lo
 
 
 def _max_iter(settings: QPSettings) -> int:
@@ -766,39 +724,34 @@ def _max_iter(settings: QPSettings) -> int:
     return n_segments * settings.check_interval
 
 
-def _admm_iter(s: _Scaled, settings: QPSettings, backsolve, rho_g: ZGroups,
-               fac, w: WVars, z: ZGroups, y: ZGroups):
-    """One over-relaxed ADMM iteration at per-row step sizes rho_g."""
+def _admm_iter(s: _Scaled, settings: QPSettings, backsolve,
+               rho: torch.Tensor, fac, w: torch.Tensor, z: torch.Tensor,
+               y: torch.Tensor):
+    """One over-relaxed ADMM iteration at per-row step sizes rho (B, m)."""
     sigma, alpha = settings.sigma, settings.alpha
-    nx, nu = s.Ah.shape[2], s.Bh.shape[-1]
-    rz_y = ZGroups(*(rr * zz - yy for zz, yy, rr in zip(z, y, rho_g)))
-    rhs = _wmap(lambda ww, at, qq: sigma * ww + at - qq,
-                w, _apply_AT(s, rz_y), s.q)
-    w_t = _solve(backsolve, fac, rhs, nx, nu)
+    w_t = backsolve(fac, sigma * w + _apply_AT(s, rho * z - y) - s.q)
     z_t = _apply_A(s, w_t)
-    w_new = _wmap(lambda wt, ww: alpha * wt + (1 - alpha) * ww, w_t, w)
-    z_rel = _zmap(lambda zt, zz: alpha * zt + (1 - alpha) * zz, z_t, z)
-    z_new = ZGroups(*(torch.clamp(zr + yy / rr, lo, hi)
-                      for zr, yy, rr, lo, hi in
-                      zip(z_rel, y, rho_g, s.l, s.u)))
-    y_new = ZGroups(*(yy + rr * (zr - zn) for yy, rr, zr, zn in
-                      zip(y, rho_g, z_rel, z_new)))
+    w_new = alpha * w_t + (1 - alpha) * w
+    z_rel = alpha * z_t + (1 - alpha) * z
+    z_new = torch.clamp(z_rel + y / rho, s.l, s.u)
+    y_new = y + rho * (z_rel - z_new)
     return w_new, z_new, y_new
 
 
 class _LoopState(NamedTuple):
     """What the ADMM loop carries from one residual segment to the next,
-    every leaf with the leading lane axis: the iterate, the best-so-far
-    iterate and its residuals, each lane's termination state and step
-    size, `frozen` (the lanes that keep their state in the next segment:
-    done or out of iterations) and, with adaptive rho only, `run_on` (the
-    lanes whose rho moved and that run on: the ones to refactor)."""
+    every leaf with the leading lane axis: the iterate (w packed, z and y
+    (B, m)), the best-so-far iterate and its residuals, each lane's
+    termination state and step size, `frozen` (the lanes that keep their
+    state in the next segment: done or out of iterations) and, with
+    adaptive rho only, `run_on` (the lanes whose rho moved and that run
+    on: the ones to refactor)."""
 
-    w: WVars
-    z: ZGroups
-    y: ZGroups
-    wb: WVars
-    yb: ZGroups
+    w: torch.Tensor
+    z: torch.Tensor
+    y: torch.Tensor
+    wb: torch.Tensor
+    yb: torch.Tensor
     pb: torch.Tensor
     db: torch.Tensor
     it: torch.Tensor
@@ -812,7 +765,7 @@ class _LoopState(NamedTuple):
     run_on: Optional[torch.Tensor]
 
 
-def _segment(s: _Scaled, settings: QPSettings, backsolve, rho_g: ZGroups,
+def _segment(s: _Scaled, settings: QPSettings, backsolve, rho_g,
              fac, st: _LoopState) -> _LoopState:
     """One residual segment: `check_interval` ADMM iterations, the
     residuals, the infeasibility certificates, the adaptive-rho ratio
@@ -834,9 +787,7 @@ def _segment(s: _Scaled, settings: QPSettings, backsolve, rho_g: ZGroups,
         done_new, torch.full((), STATUS_SOLVED, **i32),
         torch.full((), STATUS_MAX_ITER, **i32))
     if settings.check_infeasibility:
-        dw = _wmap(lambda a, b: a - b, w2, st.w)
-        dy = _zmap(lambda a, b: a - b, y2, st.y)
-        pinf, dinf = _certificates(s, settings, dw, dy)
+        pinf, dinf = _certificates(s, settings, w2 - st.w, y2 - st.y)
         status_new = torch.where(
             pinf & ~done_new,
             torch.full((), STATUS_PRIMAL_INFEASIBLE, **i32),
@@ -921,10 +872,6 @@ class _EagerSegments:
         return self.state
 
 
-# The launch counters to which a replayed segment adds its capture's.
-_COUNTED = (block_tridiag.launches, constraint_apply.launches)
-
-
 class _SegmentGraph:
     """One segment captured as a CUDA graph and replayed at every segment
     of every solve of the same shapes and settings.
@@ -932,19 +879,20 @@ class _SegmentGraph:
     The graph reads and writes fixed-address buffers: the scaled problem,
     the step sizes, the factor and the loop state.  `load` copies a
     solve's inputs into them, `set_factor` a refactored factor, and
-    `result` copies the final state out.  The kernel wrappers' launch
-    counters (`_COUNTED`) grow once, during capture; each replay adds
-    that growth, so they count the solve API's calls as the eager loop
-    does.  While a capture runs, other threads may work on the card, but
-    not draw from its default random generator (PyTorch ties it to every
-    capture)."""
+    `result` copies the final state out.  The program's counters
+    (`utils.profiling.counter_dicts`: the kernel wrappers' launches among
+    them) grow once, during capture; each replay adds that growth, so
+    they count the solve API's calls as the eager loop does.  While a
+    capture runs, other threads may work on the card, but not draw from
+    its default random generator (PyTorch ties it to every capture)."""
 
     def __init__(self, s, settings, backsolve, rho_g, fac, st):
         self.device = st.frozen.device
         self.s, self.rho_g, self.fac, self.state = _tree.map_tensors(
             torch.empty_like, (s, rho_g, fac, st))
         self.load(s, rho_g, fac, st)
-        before = [dict(d) for d in _COUNTED]
+        counted = profiling.counter_dicts()
+        before = [dict(d) for d in counted]
 
         def body():
             return _segment(self.s, settings, backsolve, self.rho_g,
@@ -959,7 +907,7 @@ class _SegmentGraph:
                 with torch.cuda.stream(side):
                     body()
                 torch.cuda.current_stream().wait_stream(side)
-                warm = [dict(d) for d in _COUNTED]
+                warm = [dict(d) for d in counted]
                 # thread-local: CUDA then forbids the potentially unsafe
                 # calls (cudaMalloc) of this thread alone, not those of
                 # other threads (say, the server's control loop)
@@ -967,10 +915,12 @@ class _SegmentGraph:
                 with torch.cuda.graph(self.graph,
                                       capture_error_mode="thread_local"):
                     _copy_leaves(self.state, body())
-            self.launches = [{k: d[k] - w[k] for k in d}
-                             for d, w in zip(_COUNTED, warm)]
+            # (counter dict, its growth) for each dict that grew
+            grown = [(d, {k: d[k] - w[k] for k in d if d[k] != w[k]})
+                     for d, w in zip(counted, warm)]
+            self.grown = [(d, g) for d, g in grown if g]
         finally:
-            for d, b in zip(_COUNTED, before):
+            for d, b in zip(counted, before):
                 d.update(b)             # neither ran a solve's segment
         counts["admm.graph_captures"] += 1
 
@@ -981,8 +931,8 @@ class _SegmentGraph:
     def run(self) -> None:
         with torch.cuda.device(self.device):
             self.graph.replay()
-        for d, grown in zip(_COUNTED, self.launches):
-            for k, n in grown.items():
+        for d, grew in self.grown:
+            for k, n in grew.items():
                 d[k] += n
         counts["admm.graph_replays"] += 1
 
@@ -1036,8 +986,8 @@ def _keep_graph(key, graph) -> None:
             _SEGMENT_GRAPHS.popitem(last=False)
 
 
-def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
-                       settings: QPSettings, nx: int, nu: int):
+def _admm_loop_batched(s: _Scaled, w: torch.Tensor, y: torch.Tensor,
+                       settings: QPSettings):
     """Batch-first ADMM loop (+ optional polish): fixed rho, or adaptive
     rho, where each lane carries its rho and its factorization across
     segments and is refactored only when its residual ratio leaves the
@@ -1051,10 +1001,11 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
     loop ends when every lane is frozen.  Each segment (`_segment`) runs
     eagerly on the CPU and as a replayed CUDA graph on the card; the
     refactors stay outside it.  Returns
-    (w, y, y_lo, it, prim, dual, status, rho, refactors) with (B,)
-    termination state; y_lo is the low part of the polish's two-float
-    dual (zeros where the polish was not accepted), rho each lane's final
-    step size and refactors its 'cond' refactorizations.
+    (w, y, y_lo, it, prim, dual, status, rho, refactors): w packed, y
+    and y_lo (B, m), the rest (B,) termination state; y_lo is the low
+    part of the polish's two-float dual (zeros where the polish was not
+    accepted), rho each lane's final step size and refactors its 'cond'
+    refactorizations.
     """
     nb = s.sh.shape[0]
     dtype, dev = s.sh.dtype, s.sh.device
@@ -1064,7 +1015,7 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
     def refactor_lanes(rho_b, fac, lanes):
         """The factor of the given lanes at their new rho, scattered into
         the carried factor; the other lanes keep theirs."""
-        diag, off = _assemble_blocks(s, _rho_groups(settings, rho_b, s),
+        diag, off = _assemble_blocks(s, _rho_rows(settings, rho_b, s),
                                      sigma)
         sub = factorize(diag.index_select(0, lanes),
                         off.index_select(0, lanes))
@@ -1072,7 +1023,7 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
                            for f, g in zip(fac, sub)))
 
     rho_b = torch.full((nb,), settings.rho, dtype=dtype, device=dev)
-    rho_g = _rho_groups(settings, rho_b, s)
+    rho_g = _rho_rows(settings, rho_b, s)
     with span("admm.factor"):
         fac = factorize(*_assemble_blocks(s, rho_g, sigma))
     refactors = torch.zeros(nb, dtype=torch.int32, device=dev)
@@ -1110,7 +1061,7 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
                 counts["admm.refactor_calls"] += 1
                 with span("admm.factor"):
                     rho_b = loop.state.rho_b
-                    loop.set_factor(_rho_groups(settings, rho_b, s),
+                    loop.set_factor(_rho_rows(settings, rho_b, s),
                                     refactor_lanes(rho_b, loop.fac, lanes))
                     refactors = refactors.index_add(
                         0, lanes, torch.ones_like(lanes, dtype=torch.int32))
@@ -1124,11 +1075,11 @@ def _admm_loop_batched(s: _Scaled, w: WVars, y: ZGroups,
     prim = torch.where(adopt, st.pb, st.prim)
     dual = torch.where(adopt, st.db, st.dual)
     it, status = st.it, st.status
-    y_lo = ZGroups(*(torch.zeros_like(v) for v in y))
+    y_lo = torch.zeros_like(y)
 
     if settings.polish:
         with span("qp.polish"):
-            w_p, z_p, y_p, y_lo_p = _polish(s, settings, sigma, w, y, nx, nu)
+            w_p, z_p, y_p, y_lo_p = _polish(s, settings, sigma, w, y)
             (prim_p, dual_p, eps_prim_p, eps_dual_p,
              _, _) = _residuals(s, settings, w_p, z_p, y_p, y_lo_p)
             # normalized worst-residual acceptance gate, as shipped in the
@@ -1185,26 +1136,18 @@ def solve_block_qp(qp: BlockQP, settings: QPSettings = QPSettings(),
     """Structured ADMM solve of a batch of block QPs (leading axis B);
     OSQP semantics.  w0 / y0: unscaled primal / dual warm starts."""
     check_settings(settings)
-    nx, nu = qp.A.shape[2], qp.n_u
     with span("qp.scale"):
         s = _ruiz(qp, settings.scaling_iters)
-    if w0 is None:
-        w = WVars(*(torch.zeros_like(d) for d in s.D))
-    else:
-        w = _wmap(lambda a, b: a / b, w0, s.D)
-    if y0 is None:
-        y = _zmap(torch.zeros_like, s.l)
-    else:
-        y = _zmap(lambda a, b: _bc(s.c, a) * a / b, y0, s.E)
+    w = (torch.zeros_like(s.D) if w0 is None else _wpacked(w0) / s.D)
+    y = (torch.zeros_like(s.l) if y0 is None
+         else s.c[:, None] * _zflat(y0) / s.E)
     w, y, y_lo, it, prim, dual, status, rho, refactors = _admm_loop_batched(
-        s, w, y, settings, nx, nu)
-    w_un = _wmap(lambda a, d: a * d, w, s.D)
-
-    def unscale(a, e):
-        return a * e / _bc(s.c, a)
+        s, w, y, settings)
+    w_un = s.wvars(w * s.D)
+    c = s.c[:, None]
     return BlockQPSolution(X=w_un.x, U=w_un.u, t=w_un.t,
-                           y=_zmap(unscale, y, s.E),
-                           y_lo=_zmap(unscale, y_lo, s.E),
+                           y=s.zgroups(y * s.E / c),
+                           y_lo=s.zgroups(y_lo * s.E / c),
                            iterations=it, prim_res=prim, dual_res=dual,
                            converged=(status == STATUS_SOLVED),
                            status=status, rho=rho, refactors=refactors)

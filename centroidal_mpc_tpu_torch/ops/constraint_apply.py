@@ -10,13 +10,15 @@ plain versions (`_apply_A_plain`, `_apply_AT_plain`, the einsums) for CPU
 tensors; on a CUDA tensor there is no fallback.
 
 The coefficient blocks are passed in the order of `COEFFICIENTS` (fields
-of `ops.blockqp._Scaled`) and must be contiguous; the vectors w = (x, u,
-t) may be any strided views (the solve's packed output, say), the
-constraint groups z any layout (copied to contiguous where they are not).
-The kernels are built for nx = 9 and the contact layouts (C, nuc) of
-`CONTACT_LAYOUTS`.  `launches` counts the wrappers' calls on the card;
-`constraint_apply_cost` gives the work of one product, from which its
-bound is computed.
+of `ops.blockqp._Scaled`) and must be contiguous.  The vectors are the
+solve's own tensors: w = (x, u, t) any strided views (of the packed
+(B, N+1, V) W, say), z one lane-major (B, m) buffer whose lanes may lie
+any stride apart, each lane's row holding the groups of
+`ops.blockqp.ZGroups` in field order.  A w is returned as such a buffer,
+A' z as a packed W.  The kernels are built for nx = 9 and the contact
+layouts (C, nuc) of `CONTACT_LAYOUTS`.  `launches` counts the wrappers'
+calls on the card; `constraint_apply_cost` gives the work of one product,
+from which its bound is computed.
 """
 from __future__ import annotations
 
@@ -64,41 +66,44 @@ def _check_like(name: str, ref: torch.Tensor, pairs) -> None:
                              f"{tuple(shape)}")
 
 
+def _zwidth(N: int, C: int) -> int:
+    """m: init, dyn, final, cop, fric, trust, slack rows of a lane."""
+    return NX + N * NX + NX + N * C * 2 + N * C * 5 + (N + 1) * 8 + (N + 1)
+
+
 def apply_A(coef, x: torch.Tensor, u: torch.Tensor, t: torch.Tensor):
-    """z = A w on the card: (init, dyn, final, cop, fric, trust, slack) of
-    `ops.blockqp.ZGroups` from x (B, N+1, nx), u (B, N, nu), t (B, N+1)."""
+    """z = A w on the card, a (B, m) buffer, from x (B, N+1, nx),
+    u (B, N, nu), t (B, N+1)."""
     sfx, (B, N, nx, C, nuc) = _check_coefficients("constraint_apply", coef)
     ref = coef[1]
     _check_like("constraint_apply", ref, ((x, (B, N + 1, nx)),
                                           (u, (B, N, C * nuc)),
                                           (t, (B, N + 1))))
-    out = tuple(ref.new_empty(shape) for shape in (
-        (B, nx), (B, N, nx), (B, nx), (B, N, C, 2), (B, N, C, 5),
-        (B, N + 1, 8), (B, N + 1)))
+    z = ref.new_empty((B, _zwidth(N, C)))
     cuda_lib.launch("cmpc_constraint_apply", sfx, ref.device, *coef, x, u, t,
-                    *out, B, N, nx, C, nuc, *x.stride(), *u.stride(),
-                    *t.stride())
+                    z, B, N, nx, C, nuc, *x.stride(), *u.stride(),
+                    *t.stride(), z.stride(0))
     launches["constraint_apply"] += 1
-    return out
+    return z
 
 
-def apply_AT(coef, z):
-    """w = A' z on the card: (x, u, t) from the groups of z (init, dyn,
-    final, cop, fric, trust, slack)."""
+def apply_AT(coef, z: torch.Tensor) -> torch.Tensor:
+    """w = A' z on the card from a (B, m) z: the packed (B, N+1, V) W,
+    its dummy control slot of knot N zero."""
     sfx, (B, N, nx, C, nuc) = _check_coefficients("constraint_apply_T",
                                                   coef)
     ref = coef[1]
-    z = tuple(g.contiguous() for g in z)
-    _check_like("constraint_apply_T", ref, zip(z, (
-        (B, nx), (B, N, nx), (B, nx), (B, N, C, 2), (B, N, C, 5),
-        (B, N + 1, 8), (B, N + 1))))
-    x = ref.new_empty((B, N + 1, nx))
-    u = ref.new_empty((B, N, C * nuc))
-    t = ref.new_empty((B, N + 1))
-    cuda_lib.launch("cmpc_constraint_apply_T", sfx, ref.device, *coef, *z,
-                    x, u, t, B, N, nx, C, nuc)
+    _check_like("constraint_apply_T", ref, ((z, (B, _zwidth(N, C))),))
+    if z.stride(1) != 1:
+        raise ValueError("constraint_apply_T: a lane's rows of z must be "
+                         "contiguous")
+    W = ref.new_empty((B, N + 1, nx + C * nuc + 1))
+    x, u, t = W[..., :nx], W[..., nx:-1], W[..., -1]
+    cuda_lib.launch("cmpc_constraint_apply_T", sfx, ref.device, *coef, z,
+                    x, u, t, B, N, nx, C, nuc, z.stride(0), *x.stride(),
+                    *u.stride(), *t.stride())
     launches["constraint_apply_T"] += 1
-    return x, u, t
+    return W
 
 
 def constraint_apply_cost(B: int, N: int, nx: int, nu: int, C: int,

@@ -38,8 +38,8 @@ _SIGNATURES = {
     "cmpc_tridiag_fwd": [_P] * 4 + [_I] * 3 + [_P],
     "cmpc_tridiag_bwd": [_P] * 4 + [_I] * 3 + [_P],
     "cmpc_dare_lqr": [_P] * 5 + [_I] * 4 + [_P],
-    "cmpc_constraint_apply": [_P] * 20 + [_I] * 13 + [_P],
-    "cmpc_constraint_apply_T": [_P] * 20 + [_I] * 5 + [_P],
+    "cmpc_constraint_apply": [_P] * 14 + [_I] * 14 + [_P],
+    "cmpc_constraint_apply_T": [_P] * 14 + [_I] * 14 + [_P],
 }
 
 

@@ -107,18 +107,22 @@ def span(name: str):
     return torch._C._profiler._RecordFunctionFast("cmpc." + name)
 
 
-def counters() -> Dict[str, int]:
-    """A snapshot of every counter of the program: the kernel wrappers'
-    `launches` (`ops.block_tridiag`, `ops.lqr_kernel`: calls of the solve
-    API, and the lanes the factor calls factored) and the solver loops'
-    `counts` (`solver.scp`: SCP passes and linearizations;
-    `ops.admm`: ADMM segments, iterations and refactor calls, shared by
-    the dense and block solvers), with one `sync.*` count a blocking host
-    read.  The counters only grow; subtract two snapshots."""
-    from centroidal_mpc_tpu_torch.ops import admm, block_tridiag, lqr_kernel
+def counter_dicts() -> tuple:
+    """The program's counter dicts, each its module's own object: the
+    kernel wrappers' `launches` (`ops.block_tridiag`, `ops.lqr_kernel`,
+    `ops.constraint_apply`: calls of the solve API, and the lanes the
+    factor calls factored) and the solver loops' `counts` (`ops.admm`,
+    shared by the dense and block solvers; `solver.scp`), with one
+    `sync.*` count a blocking host read.  A replayed segment graph adds
+    to them what its capture added (`ops.blockqp._SegmentGraph`)."""
+    from centroidal_mpc_tpu_torch.ops import (admm, block_tridiag,
+                                              constraint_apply, lqr_kernel)
     from centroidal_mpc_tpu_torch.solver import scp
-    out: Dict[str, int] = {}
-    for counts in (block_tridiag.launches, lqr_kernel.launches, admm.counts,
-                   scp.counts):
-        out.update(counts)
-    return out
+    return (block_tridiag.launches, lqr_kernel.launches,
+            constraint_apply.launches, admm.counts, scp.counts)
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of every counter of the program (`counter_dicts`).  The
+    counters only grow; subtract two snapshots."""
+    return {k: n for counts in counter_dicts() for k, n in counts.items()}

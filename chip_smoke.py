@@ -593,8 +593,8 @@ CONSTRAINT_UNTIMED = (("talos", 128, 165),)
 def constraint_problem(robot, b, n, seed=3):
     """Random coefficient blocks of a robot's shapes on the card in f32
     (zero CoP coefficients for point feet, as build_block_qp makes them),
-    w as the strided views of a packed array (as the solve returns it),
-    and a z."""
+    a packed W (the dummy control slot zero) and a (B, m) z, as the ADMM
+    carries them."""
     C, nuc, live = CONSTRAINT_LAYOUTS[robot]
     nu = C * nuc
     g = torch.Generator().manual_seed(seed)
@@ -608,27 +608,31 @@ def constraint_problem(robot, b, n, seed=3):
               else torch.zeros(b, n, C, 2, device="cuda")),
         Th=rnd(n + 1, 8, 3), wh=rnd(n + 1, 8), sh=rnd(n + 1), l=None,
         u=None, D=None, E=None, c=None)
-    w = tbq._unpack(rnd(n + 1, 9 + nu + 1), 9, nu)
-    z = tbq.ZGroups(rnd(9), rnd(n, 9), rnd(9), rnd(n, C, 2), rnd(n, C, 5),
-                    rnd(n + 1, 8), rnd(n + 1))
-    return s, w, z
+    W = rnd(n + 1, 9 + nu + 1)
+    W[:, -1, 9:-1] = 0
+    return s, W, rnd(ca._zwidth(n, C))
 
 
 def phase_constraint_apply():
     """constraint_apply (A w) and constraint_apply_T (A' z) against their
-    plain versions at CONSTRAINT_SHAPES, A on the strided and on
-    contiguous w; timed at all but CONSTRAINT_UNTIMED.  Returns
-    {kernel: (the main path's numbers, the MPC tick's)}."""
+    plain versions at CONSTRAINT_SHAPES, A on w as the strided views of
+    the packed W and as contiguous tensors; timed at all but
+    CONSTRAINT_UNTIMED.  Returns {kernel: (the main path's numbers, the
+    MPC tick's)}."""
     main, mpc = {}, {}
     for robot, b, n in CONSTRAINT_SHAPES:
-        s, w, z = constraint_problem(robot, b, n)
+        s, W, z = constraint_problem(robot, b, n)
         coef = tbq._coefficients(s)
-        w_dense = tbq.WVars(*(a.contiguous() for a in w))
-        a_err = max(rel_err(x, y) for ww in (w, w_dense) for x, y in zip(
-            tbq._apply_A(s, ww), tbq._apply_A_plain(s, ww)))
-        a_abs = max(float((x - y).abs().max()) for x, y in zip(
-            tbq._apply_A(s, w), tbq._apply_A_plain(s, w)))
-        t_pairs = list(zip(tbq._apply_AT(s, z), tbq._apply_AT_plain(s, z)))
+        w = s.wvars(W)
+        a_want = s.zgroups(tbq._apply_A_plain(s, W))
+        a_got = [s.zgroups(tbq._apply_A(s, W)),
+                 s.zgroups(ca.apply_A(coef, *(a.contiguous() for a in w)))]
+        a_err = max(rel_err(x, y) for got in a_got
+                    for x, y in zip(got, a_want))
+        a_abs = max(float((x - y).abs().max())
+                    for x, y in zip(a_got[0], a_want))
+        t_pairs = list(zip(s.wvars(tbq._apply_AT(s, z)),
+                           s.wvars(tbq._apply_AT_plain(s, z))))
         t_err = max(rel_err(x, y) for x, y in t_pairs)
         t_abs = max(float((x - y).abs().max()) for x, y in t_pairs)
         torch.cuda.synchronize()
@@ -642,7 +646,7 @@ def phase_constraint_apply():
         C, nuc, _ = CONSTRAINT_LAYOUTS[robot]
         cost = ca.constraint_apply_cost(b, n, 9, C * nuc, C, nuc)
         runs = {"constraint_apply": (lambda: ca.apply_A(coef, *w),
-                                     lambda: tbq._apply_A_plain(s, w), a_abs),
+                                     lambda: tbq._apply_A_plain(s, W), a_abs),
                 "constraint_apply_T": (lambda: ca.apply_AT(coef, z),
                                        lambda: tbq._apply_AT_plain(s, z),
                                        t_abs)}

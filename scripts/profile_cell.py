@@ -21,18 +21,7 @@ sys.path.insert(0, ROOT)
 
 from scpbench.harness import BatchLoop, Cell, build_program  # noqa: E402
 from scpbench.traffic import Scenarios  # noqa: E402
-
-
-def counters():
-    """The port's launch and ADMM counters; a checkout without the
-    constraint kernels (an older commit) has no counter of theirs."""
-    from centroidal_mpc_tpu_torch.ops import admm, block_tridiag, lqr_kernel
-    out = {**block_tridiag.launches, **lqr_kernel.launches, **admm.counts}
-    try:
-        from centroidal_mpc_tpu_torch.ops import constraint_apply
-    except ImportError:
-        return out
-    return {**out, **constraint_apply.launches}
+from centroidal_mpc_tpu_torch.utils.profiling import counters  # noqa: E402
 
 
 def main(argv=None):

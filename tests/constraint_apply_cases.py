@@ -5,6 +5,7 @@ tests can use it too."""
 import torch
 
 from centroidal_mpc_tpu_torch.ops import blockqp as tbq
+from centroidal_mpc_tpu_torch.ops import constraint_apply as ca
 
 NX = 9
 # robot: (contacts C, entries a contact nuc, live CoP rows)
@@ -37,33 +38,28 @@ def random_scaled(robot, B, N, dtype=torch.float64, device="cpu", seed=0):
         c=None)
 
 
-def random_w(s, seed=1, packed=False):
-    """A random variable-space vector for s.  packed: x, u, t as the
-    strided views `_unpack` gives of one (B, N+1, V) array, as the ADMM
-    solve returns them."""
+def random_w(s, seed=1):
+    """A random variable-space vector for s, packed (B, N+1, V) as the
+    ADMM carries it, its dummy control slot zero."""
     B, N, nx, nu = s.Ah.shape[0], s.Ah.shape[1], NX, s.Bh.shape[-1]
     g = torch.Generator().manual_seed(seed)
     W = torch.randn((B, N + 1, nx + nu + 1), generator=g,
                     dtype=torch.float64).to(s.Ah)
-    if packed:
-        return tbq._unpack(W, nx, nu)
-    return tbq.WVars(x=W[..., :nx].contiguous(),
-                     u=W[:, :-1, nx:nx + nu].contiguous(),
-                     t=W[..., -1].contiguous())
+    W[:, -1, nx:-1] = 0
+    return W
 
 
-def random_z(s, seed=2):
-    """A random constraint-space vector for s."""
+def random_z(s, seed=2, pad=0):
+    """A random constraint-space vector for s, one lane-major (B, m)
+    buffer; pad > 0: the first m columns of a (B, m + pad) one, so that
+    its lanes lie m + pad apart."""
     B, N = s.Ah.shape[0], s.Ah.shape[1]
-    C = s.Gh.shape[2]
+    m = ca._zwidth(N, s.Gh.shape[2])
     g = torch.Generator().manual_seed(seed)
-    shapes = ((NX,), (N, NX), (NX,), (N, C, 2), (N, C, 5), (N + 1, 8),
-              (N + 1,))
-    return tbq.ZGroups(*(torch.randn((B,) + sh, generator=g,
-                                     dtype=torch.float64).to(s.Ah)
-                         for sh in shapes))
+    return torch.randn((B, m + pad), generator=g,
+                       dtype=torch.float64).to(s.Ah)[:, :m]
 
 
 def dot(a, b) -> float:
-    """<a, b> over every group, in float64."""
-    return sum(float((x.double() * y.double()).sum()) for x, y in zip(a, b))
+    """<a, b> over every entry, in float64."""
+    return float((a.double() * b.double()).sum())

@@ -2,9 +2,11 @@
 graph.
 
 On the CPU the loop runs each segment eagerly: its iterates equal, bit for
-bit, those of the loop written out below as one piece (iterations, the
-residual test, certificates, adaptive rho, best-so-far and stall
-bookkeeping inline), and no graph is captured or replayed.  The graph
+bit and in float32 and float64, those of the loop written out below as one
+piece (iterations, the residual test, certificates, adaptive rho,
+best-so-far and stall bookkeeping inline), which keeps every QP vector as
+its groups (`ZGroups`, `WVars`) and does each elementwise operation group
+by group; and no graph is captured or replayed.  The graph
 cache's key (the whole settings and every buffer's shape) and its cap are
 checked here too.  The `cuda` cases hold the replayed loop on the card to
 the eager one: at the trot (V=22) and bolt (V=16) shapes with fixed and
@@ -19,6 +21,7 @@ as many sweep kernels as the launch counters count:
     python -m pytest --noconftest -m cuda tests/test_torch_admm_graph.py
 """
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -75,54 +78,100 @@ def _block_qp(preset, batch: int, device, dtype):
 
 
 def _scaled_start(qp, w0, settings):
-    """The scaled problem and the scaled warm start, as solve_block_qp
-    hands them to the loop."""
+    """The scaled problem and the scaled warm start (w packed, y (B, m)),
+    as solve_block_qp hands them to the loop."""
     s = tbq._ruiz(qp, settings.scaling_iters)
-    w = tbq._wmap(lambda a, b: a / b, w0, s.D)
-    y = tbq._zmap(torch.zeros_like, s.l)
-    return s, w, y
+    return s, _packed(w0) / s.D, torch.zeros_like(s.l)
 
 
-def _written_out_loop(s, w, y, settings, nx, nu):
-    """The ADMM loop with every segment written out inline: the
-    reference that `_admm_loop_batched` and its `_segment` are held to."""
+# the written-out loop's own group helpers
+def _zmap(f, *zs):
+    return tbq.ZGroups(*(f(*parts) for parts in zip(*zs)))
+
+
+def _wmap(f, *ws):
+    return tbq.WVars(*(f(*parts) for parts in zip(*ws)))
+
+
+def _groups(s, z):
+    """The ZGroups of a (B, m) constraint-space vector of s."""
+    nb, N, C = s.Ah.shape[0], s.Ah.shape[1], s.Gh.shape[2]
+    shapes = ((9,), (N, 9), (9,), (N, C, 2), (N, C, 5), (N + 1, 8),
+              (N + 1,))
+    parts = z.split([math.prod(sh) for sh in shapes], dim=1)
+    return tbq.ZGroups(*(p.reshape((nb,) + sh)
+                         for p, sh in zip(parts, shapes)))
+
+
+def _flat(z):
+    return torch.cat([g.flatten(1) for g in z], dim=1)
+
+
+def _wvars(W):
+    """The WVars of a packed (B, N+1, V) variable-space vector."""
+    return tbq.WVars(x=W[..., :9], u=W[:, :-1, 9:-1], t=W[..., -1])
+
+
+def _packed(w):
+    nb, n, nu = w.u.shape
+    W = torch.zeros((nb, n + 1, 9 + nu + 1), dtype=w.x.dtype,
+                    device=w.x.device)
+    W[..., :9], W[:, :-1, 9:-1], W[..., -1] = w.x, w.u, w.t
+    return W
+
+
+def _written_out_loop(s, w, y, settings):
+    """The ADMM loop with every segment written out inline and every QP
+    vector kept as its groups: the reference that `_admm_loop_batched`
+    and its `_segment` are held to.  Takes and returns w packed and y,
+    y_lo (B, m), as the loop does."""
     nb = s.sh.shape[0]
     dtype, dev = s.sh.dtype, s.sh.device
     sigma, alpha = settings.sigma, settings.alpha
     n_segments = -(-settings.max_iter // settings.check_interval)
     max_it = n_segments * settings.check_interval
     factorize, backsolve = tbq._backend(settings)
-    ZGroups, _wmap, _zmap = tbq.ZGroups, tbq._wmap, tbq._zmap
+    ZGroups = tbq.ZGroups
+    q, lo_g, hi_g = _wvars(s.q), _groups(s, s.l), _groups(s, s.u)
+
+    def rho_groups(rho_b):
+        """Per-row step sizes at full group shapes; equality rows get
+        eq_rho_scale * rho."""
+        req = settings.eq_rho_scale * rho_b
+        return ZGroups(*(r.reshape((-1,) + (1,) * (like.dim() - 1))
+                         .expand_as(like) for r, like in
+                         zip((req, req, req, rho_b, rho_b, rho_b, rho_b),
+                             lo_g)))
 
     def refactor_lanes(rho_b, fac, lanes):
-        diag, off = tbq._assemble_blocks(
-            s, tbq._rho_groups(settings, rho_b, s), sigma)
+        diag, off = tbq._assemble_blocks(s, _flat(rho_groups(rho_b)), sigma)
         sub = factorize(diag.index_select(0, lanes),
                         off.index_select(0, lanes))
         return type(fac)(*(f.index_copy(0, lanes, g)
                            for f, g in zip(fac, sub)))
 
     rho_b = torch.full((nb,), settings.rho, dtype=dtype, device=dev)
-    rho_g = tbq._rho_groups(settings, rho_b, s)
-    fac = factorize(*tbq._assemble_blocks(s, rho_g, sigma))
+    rho_g = rho_groups(rho_b)
+    fac = factorize(*tbq._assemble_blocks(s, _flat(rho_g), sigma))
     refactors = torch.zeros(nb, dtype=torch.int32, device=dev)
 
     def admm_iter(w, z, y, rho_g, fac):
         rz_y = ZGroups(*(rr * zz - yy for zz, yy, rr in zip(z, y, rho_g)))
         rhs = _wmap(lambda ww, at, qq: sigma * ww + at - qq,
-                    w, tbq._apply_AT(s, rz_y), s.q)
-        w_t = tbq._solve(backsolve, fac, rhs, nx, nu)
-        z_t = tbq._apply_A(s, w_t)
+                    w, _wvars(tbq._apply_AT(s, _flat(rz_y))), q)
+        w_t = _wvars(backsolve(fac, _packed(rhs)))
+        z_t = _groups(s, tbq._apply_A(s, _packed(w_t)))
         w_new = _wmap(lambda wt, ww: alpha * wt + (1 - alpha) * ww, w_t, w)
         z_rel = _zmap(lambda zt, zz: alpha * zt + (1 - alpha) * zz, z_t, z)
         z_new = ZGroups(*(torch.clamp(zr + yy / rr, lo, hi)
                           for zr, yy, rr, lo, hi in
-                          zip(z_rel, y, rho_g, s.l, s.u)))
+                          zip(z_rel, y, rho_g, lo_g, hi_g)))
         y_new = ZGroups(*(yy + rr * (zr - zn) for yy, rr, zr, zn in
                           zip(y, rho_g, z_rel, z_new)))
         return w_new, z_new, y_new
 
-    z = tbq._apply_A(s, w)
+    w, y = _wvars(w), _groups(s, y)
+    z = _groups(s, tbq._apply_A(s, _packed(w)))
     i32 = dict(dtype=torch.int32, device=dev)
     it = torch.zeros(nb, **i32)
     prim = torch.full((nb,), float("inf"), dtype=dtype, device=dev)
@@ -140,7 +189,8 @@ def _written_out_loop(s, w, y, settings, nx, nu):
         for _ in range(settings.check_interval):
             w2, z2, y2 = admm_iter(w2, z2, y2, rho_g, fac)
         (prim_n, dual_n, eps_prim, eps_dual,
-         prim_scale, dual_scale) = tbq._residuals(s, settings, w2, z2, y2)
+         prim_scale, dual_scale) = tbq._residuals(
+             s, settings, _packed(w2), _flat(z2), _flat(y2))
         done_new = (prim_n < eps_prim) & (dual_n < eps_dual)
         status_new = torch.where(
             done_new, torch.full((), STATUS_SOLVED, **i32),
@@ -148,7 +198,8 @@ def _written_out_loop(s, w, y, settings, nx, nu):
         if settings.check_infeasibility:
             dw = _wmap(lambda a, b: a - b, w2, w)
             dy = _zmap(lambda a, b: a - b, y2, y)
-            pinf, dinf = tbq._certificates(s, settings, dw, dy)
+            pinf, dinf = tbq._certificates(s, settings, _packed(dw),
+                                           _flat(dy))
             status_new = torch.where(
                 pinf & ~done_new,
                 torch.full((), STATUS_PRIMAL_INFEASIBLE, **i32),
@@ -188,7 +239,7 @@ def _written_out_loop(s, w, y, settings, nx, nu):
             lanes = (trigger & ~done & (it < max_it)).nonzero()[:, 0]
             if lanes.numel():
                 fac = refactor_lanes(rho_b, fac, lanes)
-                rho_g = tbq._rho_groups(settings, rho_b, s)
+                rho_g = rho_groups(rho_b)
                 refactors = refactors.index_add(
                     0, lanes, torch.ones_like(lanes, dtype=torch.int32))
 
@@ -196,9 +247,10 @@ def _written_out_loop(s, w, y, settings, nx, nu):
     w, y = select(adopt, (wb, yb), (w, y))
     prim = torch.where(adopt, pb, prim)
     dual = torch.where(adopt, db, dual)
-    y_lo = ZGroups(*(torch.zeros_like(v) for v in y))
+    w, y = _packed(w), _flat(y)
+    y_lo = torch.zeros_like(y)
     if settings.polish:
-        w_p, z_p, y_p, y_lo_p = tbq._polish(s, settings, sigma, w, y, nx, nu)
+        w_p, z_p, y_p, y_lo_p = tbq._polish(s, settings, sigma, w, y)
         (prim_p, dual_p, eps_prim_p, eps_dual_p,
          _, _) = tbq._residuals(s, settings, w_p, z_p, y_p, y_lo_p)
         worst = torch.maximum(prim / eps_prim_p, dual / eps_dual_p)
@@ -234,19 +286,27 @@ def mini_qp():
     return _block_qp(presets.SOLO12_TROT_MINI, 3, "cpu", torch.float64)
 
 
+@pytest.fixture(scope="module")
+def mini_qp32():
+    return _block_qp(presets.SOLO12_TROT_MINI, 3, "cpu", torch.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("max_iter", [10, 40, 400])
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_loop_gives_the_written_out_iterates(mini_qp, variant, max_iter):
+def test_loop_gives_the_written_out_iterates(mini_qp, mini_qp32, variant,
+                                             max_iter, dtype):
     """`_admm_loop_batched`, each segment run eagerly through `_segment`,
     returns bit for bit what the written-out loop returns, after one,
-    four and up to forty segments."""
+    four and up to forty segments; the packed iterate's dummy control
+    slot stays zero."""
     settings = dataclasses.replace(VARIANTS[variant], max_iter=max_iter)
-    qp, w0 = mini_qp
-    nx, nu = qp.A.shape[2], qp.n_u
+    qp, w0 = mini_qp if dtype == "float64" else mini_qp32
     s, w, y = _scaled_start(qp, w0, settings)
-    got = tbq._admm_loop_batched(s, w, y, settings, nx, nu)
-    want = _written_out_loop(s, w, y, settings, nx, nu)
+    got = tbq._admm_loop_batched(s, w, y, settings)
+    want = _written_out_loop(s, w, y, settings)
     _assert_same(got, want)
+    assert not got[0][:, -1, 9:-1].any()
     if variant == "cond" and max_iter == 400:
         assert (got[-1] > 0).any()          # some lane refactored
 
@@ -256,12 +316,11 @@ def test_one_segment_from_the_start(mini_qp):
     and termination state the written-out loop has after one segment."""
     settings = dataclasses.replace(BASE, max_iter=BASE.check_interval)
     qp, w0 = mini_qp
-    nx, nu = qp.A.shape[2], qp.n_u
     s, w, y = _scaled_start(qp, w0, settings)
     nb = s.sh.shape[0]
     factorize, backsolve = tbq._backend(settings)
     rho_b = torch.full((nb,), settings.rho, dtype=s.sh.dtype)
-    rho_g = tbq._rho_groups(settings, rho_b, s)
+    rho_g = tbq._rho_rows(settings, rho_b, s)
     fac = factorize(*tbq._assemble_blocks(s, rho_g, settings.sigma))
     i32 = dict(dtype=torch.int32)
     inf = torch.full((nb,), float("inf"), dtype=s.sh.dtype)
@@ -273,7 +332,7 @@ def test_one_segment_from_the_start(mini_qp):
         rho_b=rho_b, frozen=done, run_on=None)
     out = tbq._segment(s, settings, backsolve, rho_g, fac, st)
     w_ref, y_ref, _, it, prim, dual, status, _, _ = _written_out_loop(
-        s, w, y, settings, nx, nu)
+        s, w, y, settings)
     _assert_same((out.w, out.y, out.it, out.prim, out.dual, out.status),
                  (w_ref, y_ref, it, prim, dual, status))
     assert out.frozen.all() and out.run_on is None
@@ -311,7 +370,7 @@ def test_graph_key_follows_every_setting(mini_qp, field):
     s, w, y = _scaled_start(qp, w0, BASE)
     st = tbq._LoopState(*([w, tbq._apply_A(s, w), y]
                           + [s.c] * 12 + [None]))
-    rho_g = tbq._rho_groups(BASE, s.c, s)
+    rho_g = tbq._rho_rows(BASE, s.c, s)
 
     def key(settings, lanes=3):
         bufs = map_tensors(lambda a: a[:lanes], (s, rho_g, (s.Px,), st))

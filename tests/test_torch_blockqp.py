@@ -81,22 +81,45 @@ def test_factor_halves_match_pallas(v):
                                **tol)
 
 
+def _flat(groups):
+    """A grouped constraint-space vector as the port's (B, m) buffer."""
+    return np.concatenate([np.reshape(g, (np.shape(g)[0], -1))
+                           for g in groups], axis=1)
+
+
+def _packed(w):
+    """A variable-space vector (x, u, t) as the port's packed (B, N+1, V)
+    W, its dummy control slot zero."""
+    x, u, t = (np.asarray(a) for a in w)
+    W = np.zeros(x.shape[:2] + (x.shape[2] + u.shape[2] + 1,))
+    W[..., :x.shape[2]], W[:, :-1, x.shape[2]:-1], W[..., -1] = x, u, t
+    return W
+
+
 def test_block_qp_data_path_matches_jax():
     """(f) build_block_qp, _ruiz, _assemble_blocks, _apply_A/_apply_AT,
     _residuals and _certificates equal the JAX package's vmapped
-    functions (rtol 1e-11: same f64 arithmetic, einsum orders differ)."""
+    functions (rtol 1e-11: same f64 arithmetic, einsum orders differ).
+    The port's vectors are one tensor each: the JAX package's groups are
+    flattened (constraint space) or packed (variable space) to compare."""
     jprob = reduced_trot()
     jqp, tqp, _, _ = qp_pair(jprob, 2)
     tol = dict(rtol=1e-11, atol=1e-11)
     assert_tree_close(to_np(tqp), to_np(jqp), **tol)
 
     js, ts = jax.vmap(lambda q: jbq._ruiz(q, 10))(jqp), tbq._ruiz(tqp, 10)
-    assert_tree_close(to_np(ts), to_np(js), **tol)
+    t_np = dict(to_np(ts), q=to_np(ts.wvars(ts.q)), D=to_np(ts.wvars(ts.D)))
+    assert_tree_close(t_np, to_np(js._replace(l=_flat(js.l), u=_flat(js.u),
+                                              E=_flat(js.E))), **tol)
+    assert not ts.q[:, -1, 9:-1].any()
+    assert (ts.D[:, -1, 9:-1] == 1).all()
 
     jset, tset = qp_settings_pair(rho=0.1)
     rho = np.array([0.1, 0.3])
     jr = jax.vmap(lambda s_, r_: jbq._rho_groups(jset, r_, s_))(js, rho)
-    tr = tbq._rho_groups(tset, torch.as_tensor(rho), ts)
+    tr = tbq._rho_rows(tset, torch.as_tensor(rho), ts)
+    np.testing.assert_array_equal(tr.numpy(), _flat(
+        [np.broadcast_to(a, np.shape(b)) for a, b in zip(jr, js.l)]))
     jdiag, joff = jax.vmap(lambda s_, r_: jbq._assemble_blocks(
         s_, r_, 1e-6))(js, jr)
     tdiag, toff = tbq._assemble_blocks(ts, tr, 1e-6)
@@ -109,13 +132,13 @@ def test_block_qp_data_path_matches_jax():
     z = jbq.ZGroups(*(rand(a) for a in js.l))
     y = jbq.ZGroups(*(rand(a) for a in js.l))
     ylo = jbq.ZGroups(*(1e-8 * rand(a) for a in js.l))
-    tw = tbq.WVars(*(torch.as_tensor(a) for a in w))
-    tz, ty, tylo = (tbq.ZGroups(*(torch.as_tensor(a) for a in g))
-                    for g in (z, y, ylo))
-    assert_tree_close(to_np(tbq._apply_A(ts, tw)),
-                      to_np(jax.vmap(jbq._apply_A)(js, w)), **tol)
-    assert_tree_close(to_np(tbq._apply_AT(ts, ty)),
-                      to_np(jax.vmap(jbq._apply_AT)(js, y)), **tol)
+    tw = torch.as_tensor(_packed(w))
+    tz, ty, tylo = (torch.as_tensor(_flat(g)) for g in (z, y, ylo))
+    np.testing.assert_allclose(tbq._apply_A(ts, tw).numpy(),
+                               _flat(jax.vmap(jbq._apply_A)(js, w)), **tol)
+    np.testing.assert_allclose(tbq._apply_AT(ts, ty).numpy(),
+                               _packed(jax.vmap(jbq._apply_AT)(js, y)),
+                               **tol)
     jres = jax.vmap(lambda s_, w_, z_, y_, l_: jbq._residuals(
         s_, jset, w_, z_, y_, l_))(js, w, z, y, ylo)
     tres = tbq._residuals(ts, tset, tw, tz, ty, tylo)
@@ -127,9 +150,7 @@ def test_block_qp_data_path_matches_jax():
         jcert = jax.vmap(lambda s_, dw, dy: jbq._certificates(
             s_, jset, dw, dy))(js, jbq.WVars(*(scale * a for a in w)),
                                jbq.ZGroups(*(scale * a for a in y)))
-        tcert = tbq._certificates(ts, tset,
-                                  tbq.WVars(*(scale * a for a in tw)),
-                                  tbq.ZGroups(*(scale * a for a in ty)))
+        tcert = tbq._certificates(ts, tset, scale * tw, scale * ty)
         for j, t in zip(jcert, tcert):
             np.testing.assert_array_equal(t.numpy(), np.asarray(j))
 

@@ -2,8 +2,10 @@
 the CPU: the plain versions (`ops.blockqp._apply_A_plain`,
 `_apply_AT_plain`) are adjoint at the three robots' shapes, the
 dispatching `_apply_A` / `_apply_AT` run them on CPU tensors (bit for
-bit, no kernel counted), and `constraint_apply_cost` counts a product's
-work.  The kernels themselves are held to the plain versions on the card
+bit, no kernel counted), the vectors' layout (`ops.blockqp._zviews`,
+`_zflat`, `_Scaled.wvars`, `_wpacked`) gives back what it was given, and
+`constraint_apply_cost` counts a product's work.  The kernels themselves
+are held to the plain versions on the card
 (`tests/test_torch_kernels_cuda.py`)."""
 import pytest
 import torch
@@ -24,26 +26,59 @@ def test_plain_versions_are_adjoint(robot):
     w, z = random_w(s), random_z(s)
     lhs = dot(tbq._apply_A_plain(s, w), z)
     rhs = dot(w, tbq._apply_AT_plain(s, z))
-    scale = dot([a.abs() for a in tbq._apply_A_plain(s, w)],
-                [b.abs() for b in z])
+    scale = dot(tbq._apply_A_plain(s, w).abs(), z.abs())
     assert abs(lhs - rhs) <= 1e-12 * scale
 
 
-@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("strided", [False, True])
 @pytest.mark.parametrize("robot", sorted(ROBOTS))
-def test_cpu_tensors_take_the_plain_versions(robot, packed):
+def test_cpu_tensors_take_the_plain_versions(robot, strided):
     """On CPU tensors `_apply_A` and `_apply_AT` equal the plain versions
-    bit for bit (w also as the solve's strided views) and launch no
-    kernel."""
+    bit for bit (z also as a view whose lanes lie further apart than its
+    rows) and launch no kernel; A' gives a packed W with a zero dummy
+    control slot."""
     s = random_scaled(robot, 2, 7)
-    w, z = random_w(s, packed=packed), random_z(s)
+    w, z = random_w(s), random_z(s, pad=5 if strided else 0)
     before = dict(ca.launches)
     for got, want in ((tbq._apply_A(s, w), tbq._apply_A_plain(s, w)),
                       (tbq._apply_AT(s, z), tbq._apply_AT_plain(s, z))):
-        assert type(got) is type(want)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
+        assert torch.equal(got, want)
+    assert tbq._apply_A(s, w).shape == z.shape
+    assert not tbq._apply_AT(s, z)[:, -1, 9:-1].any()
     assert ca.launches == before
+
+
+@pytest.mark.parametrize("robot", sorted(ROBOTS))
+def test_vector_layout_round_trip(robot):
+    """A (B, m) buffer's groups are views of it in `ZGroups` field order
+    at their shapes, and flattened give it back; groups flattened and
+    viewed again are themselves; a packed W's x, u and t are views of it
+    and packed give it back; a cold dual is zero groups of one buffer."""
+    B, N = 3, 7
+    s = random_scaled(robot, B, N)
+    C = s.Gh.shape[2]
+    shapes = ((9,), (N, 9), (9,), (N, C, 2), (N, C, 5), (N + 1, 8),
+              (N + 1,))
+    z = random_z(s)
+    g = s.zgroups(z)
+    assert [tuple(a.shape) for a in g] == [(B,) + sh for sh in shapes]
+    assert torch.equal(tbq._zflat(g), z)
+    g.dyn[1, 2, 3] = 42.0                       # a view: writes z
+    assert float(z[1, 9 + 2 * 9 + 3]) == 42.0
+    groups = tbq.ZGroups(*(torch.randn((B,) + sh, dtype=torch.float64)
+                           for sh in shapes))
+    for a, b in zip(tbq._zviews(tbq._zflat(groups), N, C), groups):
+        assert torch.equal(a, b)
+    W = random_w(s)
+    w = s.wvars(W)
+    assert [tuple(a.shape) for a in w] == [(B, N + 1, 9),
+                                           (B, N, C * s.Gh.shape[4]),
+                                           (B, N + 1)]
+    assert torch.equal(tbq._wpacked(w), W)
+    w.u[0, 0, 0] = 7.0                          # a view: writes W
+    assert float(W[0, 0, 9]) == 7.0
+    cold = tbq.zero_zgroups(B, N, C, torch.float64, "cpu")
+    assert torch.equal(tbq._zflat(cold), torch.zeros_like(z))
 
 
 @pytest.mark.parametrize("robot", sorted(ROBOTS))
@@ -53,7 +88,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(robot):
     s = random_scaled(robot, 2, 4)
     coef = tbq._coefficients(s)
     with pytest.raises(ValueError, match="CUDA"):
-        ca.apply_A(coef, *random_w(s))
+        ca.apply_A(coef, *s.wvars(random_w(s)))
     with pytest.raises(ValueError, match="CUDA"):
         ca.apply_AT(coef, random_z(s))
 
@@ -96,7 +131,8 @@ def test_cost_counts_each_tensor_of_a_product(robot):
     B, N = 3, 5
     s = random_scaled(robot, B, N)
     w, z = random_w(s), random_z(s)
-    elems = sum(t.numel() for t in (*tbq._coefficients(s), *w, *z))
+    elems = sum(t.numel()
+                for t in (*tbq._coefficients(s), *s.wvars(w), z))
     C, nuc, _ = ROBOTS[robot]
     cost = ca.constraint_apply_cost(B, N, 9, C * nuc, C, nuc, 8)
     assert cost.bytes == 8 * elems

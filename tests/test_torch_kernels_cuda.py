@@ -447,31 +447,39 @@ def _within_rounding(got, want, magnitude, dtype):
 @pytest.mark.parametrize("robot,b,n", APPLY_SHAPES)
 def test_constraint_kernels_match_plain(cuda, dtype, robot, b, n):
     """constraint_apply and constraint_apply_T against the plain versions
-    on the card, w also as the strided views of the solve's packed output;
-    one launch each a product."""
+    on the card, one launch each a product: A on w as the strided views of
+    the packed W the ADMM carries and as contiguous tensors, A' on a (B, m)
+    z and on one whose lanes lie further apart, into a packed W with a zero
+    dummy slot; the strided and the contiguous inputs give the same bits."""
     from centroidal_mpc_tpu_torch.ops import blockqp as tbq
     from centroidal_mpc_tpu_torch.ops import constraint_apply as ca
     from constraint_apply_cases import random_scaled, random_w, random_z
     torch.backends.cuda.matmul.allow_tf32 = False
     s = random_scaled(robot, b, n, dtype, cuda)
     sa = _abs_operator(s)
-    z = random_z(s)
-    for packed in (False, True):
-        w = random_w(s, packed=packed)
+    W = random_w(s)
+    dense = tuple(a.contiguous() for a in s.wvars(W))
+    outs = []
+    for product in (lambda: tbq._apply_A(s, W),
+                    lambda: ca.apply_A(tbq._coefficients(s), *dense)):
         counts = dict(ca.launches)
-        got = tbq._apply_A(s, w)
+        outs.append(product())
         assert ca.launches["constraint_apply"] == \
             counts["constraint_apply"] + 1
-        _within_rounding(got, tbq._apply_A_plain(s, w),
-                         tbq._apply_A_plain(sa, tbq.WVars(
-                             *(a.abs() for a in w))), dtype)
-    got = tbq._apply_AT(s, z)
-    torch.cuda.synchronize()
-    assert ca.launches["constraint_apply_T"] == \
-        counts["constraint_apply_T"] + 1
-    _within_rounding(got, tbq._apply_AT_plain(s, z),
-                     tbq._apply_AT_plain(sa, tbq.ZGroups(
-                         *(a.abs() for a in z))), dtype)
+        _within_rounding([outs[-1]], [tbq._apply_A_plain(s, W)],
+                         [tbq._apply_A_plain(sa, W.abs())], dtype)
+    assert torch.equal(*outs)
+    outs, wide = [], random_z(s, pad=3)
+    for z in (wide.contiguous(), wide):
+        counts = dict(ca.launches)
+        outs.append(tbq._apply_AT(s, z))
+        torch.cuda.synchronize()
+        assert ca.launches["constraint_apply_T"] == \
+            counts["constraint_apply_T"] + 1
+        assert not outs[-1][:, -1, 9:-1].any()
+        _within_rounding([outs[-1]], [tbq._apply_AT_plain(s, z)],
+                         [tbq._apply_AT_plain(sa, z.abs())], dtype)
+    assert torch.equal(*outs)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -484,16 +492,15 @@ def test_constraint_kernels_take_unaligned_blocks(cuda, dtype):
     s = random_scaled("talos", 3, 9, dtype, cuda)
     odd = s._replace(**{f: _one_element_in(getattr(s, f))
                         for f in ca.COEFFICIENTS})
-    w, z = random_w(s, packed=True), random_z(s)
-    for a, b in zip(tbq._apply_A(odd, w), tbq._apply_A(s, w)):
-        assert torch.equal(a, b)
-    for a, b in zip(tbq._apply_AT(odd, z), tbq._apply_AT(s, z)):
-        assert torch.equal(a, b)
+    w, z = random_w(s), random_z(s)
+    assert torch.equal(tbq._apply_A(odd, w), tbq._apply_A(s, w))
+    assert torch.equal(tbq._apply_AT(odd, z), tbq._apply_AT(s, z))
 
 
 def test_constraint_wrappers_raise_on_what_they_do_not_take(cuda):
-    """A wrong shape, dtype or device, a non-contiguous coefficient block
-    or a contact layout with no kernel raises before any launch."""
+    """A wrong shape, dtype or device, a non-contiguous coefficient block,
+    a contact layout with no kernel or a z whose lane is not contiguous
+    raises before any launch."""
     from centroidal_mpc_tpu_torch.ops import blockqp as tbq
     from centroidal_mpc_tpu_torch.ops import constraint_apply as ca
     from constraint_apply_cases import random_scaled, random_w, random_z
@@ -515,11 +522,14 @@ def test_constraint_wrappers_raise_on_what_they_do_not_take(cuda):
             tbq._apply_AT(bad, z)
     half = s._replace(**{f: getattr(s, f).half() for f in ca.COEFFICIENTS})
     with pytest.raises(TypeError):
-        tbq._apply_A(half, tbq.WVars(*(a.half() for a in w)))
+        tbq._apply_A(half, w.half())
+    x, u, t = s.wvars(w)
     with pytest.raises(ValueError):                       # w of another dtype
-        tbq._apply_A(s, tbq.WVars(w.x.double(), w.u, w.t))
+        ca.apply_A(tbq._coefficients(s), x.double(), u, t)
     with pytest.raises(ValueError):                       # z of another shape
-        tbq._apply_AT(s, z._replace(fric=z.fric[:, :-1]))
+        tbq._apply_AT(s, z[:, :-1])
+    with pytest.raises(ValueError):                       # a lane strided
+        tbq._apply_AT(s, z.T.contiguous().T)
     assert ca.launches == counts
 
 
@@ -551,5 +561,5 @@ def test_replayed_segment_counts_its_products(cuda, certificates,
     assert d["constraint_apply_T"] == per_segment * segments
     graph = next(g for key, g in tbq._SEGMENT_GRAPHS.items()
                  if key[1] == settings)
-    assert graph.launches[1] == {"constraint_apply": per_segment,
-                                 "constraint_apply_T": per_segment}
+    assert next(grew for d, grew in graph.grown if d is ca.launches) == {
+        "constraint_apply": per_segment, "constraint_apply_T": per_segment}

@@ -167,26 +167,24 @@ def test_polish_ignores_round_off_duals_of_cop_rows():
     taken (the answer moves)."""
     qp, w0 = _first_qp(torch.float32, **SHORT_GAIT)
     s = blockqp._ruiz(qp, 10)
-    w0 = blockqp._wmap(lambda a, d: a / d, w0, s.D)
-    y0 = blockqp.ZGroups(*(torch.zeros_like(v) for v in s.l))
     w, y = blockqp._admm_loop_batched(
-        s, w0, y0, dataclasses.replace(BENCH_TALOS_QP, polish=False),
-        9, 12)[:2]
-    free = ((y.cop == 0) & (s.coph != 0)
-            & ((blockqp._apply_A(s, w).cop - s.l.cop).abs() > 1e-2)
-            & ((s.u.cop - blockqp._apply_A(s, w).cop).abs() > 1e-2))
+        s, blockqp._wpacked(w0) / s.D, torch.zeros_like(s.l),
+        dataclasses.replace(BENCH_TALOS_QP, polish=False))[:2]
+    cop, Aw_cop = s.zgroups(y).cop, s.zgroups(blockqp._apply_A(s, w)).cop
+    free = ((cop == 0) & (s.coph != 0)
+            & ((Aw_cop - s.zgroups(s.l).cop).abs() > 1e-2)
+            & ((s.zgroups(s.u).cop - Aw_cop).abs() > 1e-2))
     assert int(free.sum()) > 10
 
     def polished(dual):
-        y_n = y._replace(cop=torch.where(free, torch.full_like(y.cop, dual),
-                                         y.cop))
+        y_n = y.clone()
+        s.zgroups(y_n).cop.copy_(torch.where(
+            free, torch.full_like(cop, dual), cop))
         return blockqp._polish(s, BENCH_TALOS_QP, BENCH_TALOS_QP.sigma, w,
-                               y_n, 9, 12)[0]
+                               y_n)[0]
     clean = polished(0.0)
-    for a, b in zip(polished(1e-10), clean):
-        assert torch.equal(a, b)
-    assert not all(torch.equal(a, b)
-                   for a, b in zip(polished(1e-3), clean))
+    assert torch.equal(polished(1e-10), clean)
+    assert not torch.equal(polished(1e-3), clean)
 
 
 @pytest.mark.cuda

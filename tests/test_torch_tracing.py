@@ -140,6 +140,21 @@ def test_counters_keep_the_launch_dicts(prob):
     assert snap["admm.segments"] != admm.counts["admm.segments"]
 
 
+def test_counters_read_the_one_tuple_of_counter_dicts():
+    """`counters()` and the CUDA graph's replay accounting read one tuple,
+    `counter_dicts()`: the modules' own dicts, the constraint operator's
+    launches among them."""
+    from centroidal_mpc_tpu_torch.ops import constraint_apply
+    from centroidal_mpc_tpu_torch.solver import scp
+    owners = (block_tridiag.launches, lqr_kernel.launches,
+              constraint_apply.launches, admm.counts, scp.counts)
+    assert all(a is b for a, b in zip(profiling.counter_dicts(), owners))
+    assert len(profiling.counter_dicts()) == len(owners)
+    snap = profiling.counters()
+    assert {"constraint_apply", "constraint_apply_T"} <= set(snap)
+    assert set(snap) == set().union(*owners)
+
+
 def test_counters_list_the_graph_counters(prob):
     """The block loop's CUDA graph counters are among the program's
     counters, the ADMM module says what they count, and a CPU solve
